@@ -14,6 +14,7 @@ explicit round-to-nearest intrinsic.  No fast-math flag is ever given.
 
 Every kernel wrapper calls `count(name)` once per launch, and nowhere
 else, so a run can show which kernels its main path went through.
+`time_ms` times calls on the device's clock for the scripts that measure.
 """
 
 from __future__ import annotations
@@ -81,7 +82,8 @@ def _nvcc() -> str:
 def _lib_path(lib: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(_source_path(lib).read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    # every other file beside the sources may be included by one of them
+    for header in sorted(f for f in CSRC.iterdir() if f.is_file() and f.suffix != ".cu"):
         h.update(header.name.encode())
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{lib}-{h.hexdigest()[:16]}.so"
@@ -134,6 +136,43 @@ def check(cdll: ctypes.CDLL, err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}: {cdll.carta1_error_string(err).decode()}")
 
 
+def empty_launch(device: torch.device) -> None:
+    """Launch a kernel that returns at once, through the same ctypes route
+    as the real ones: what a launch alone costs on this machine."""
+    cdll = library("qmf_taps")
+    fn = cdll.carta1_empty_launch
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    check(cdll, fn(stream), "empty_launch")
+
+
+SPIN_CYCLES = 80_000_000     # torch.cuda._sleep: about 40 ms at the H100's 1.98 GHz
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> tuple[float, float]:
+    """(device ms, host ms) of one fn() call, means over reps calls.
+
+    The calls are queued behind a spinning kernel of about 40 ms, so the
+    device runs them back to back and the CUDA events around them read the
+    device's time; a kernel of a few microseconds would otherwise be timed
+    at the pace of the Python that launches it.  The host time is that
+    pace: the wall time of one call that only enqueues."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host / reps * 1e3
+
+
 def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
@@ -142,8 +181,10 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    """Validate what a kernel takes: dtype, rank, contiguity, device type."""
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int, align: int = 1) -> None:
+    """Validate what a kernel takes: dtype, rank, contiguity, device type,
+    and, on the card, the byte alignment of its first element (the kernels'
+    vector copies need it)."""
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(
             f"{name}: need a contiguous {dtype} tensor of rank {ndim}, got "
@@ -151,3 +192,5 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         )
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.device.type == "cuda" and t.data_ptr() % align:
+        raise ValueError(f"{name}: need data aligned to {align} bytes, got address {t.data_ptr():#x}")

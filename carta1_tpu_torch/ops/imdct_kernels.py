@@ -7,10 +7,15 @@ f64 with f32 error-free expansions; the CUDA kernel (`csrc/imdct_exact.cu`)
 computes in IEEE f64 with one rounding per operation, mirroring the gold
 engine's `imdct_js` + `fft_js` store for store.
 
-Bound on the H100: bytes -- 8 bytes of device traffic per coefficient
-against 21-24 f64 operations.  The design keeps the whole transform (pre-
-twiddle, every FFT stage, post-twiddle) in shared memory and writes only
-the middle half of the output, the only part the decoder reads.
+Bound on the H100: bytes at sizes 256 and 512 (8 bytes of device traffic
+per coefficient against 21-24 f64 operations), the launch itself at size
+64.  Rows enter and leave shared memory as coalesced 16-byte copies; at
+size 64 one thread holds a whole 16-point transform in registers; at 256
+and 512 a thread holds 8 points and runs three radix-2 stages per pass, a
+transform's threads share a warp, and `__syncwarp` is the only barrier
+between stages.  Twiddles are kernel parameters or shared-memory copies.
+Only the middle half of the output is computed, the only part the decoder
+reads.  `TILE` is the rows one block takes, per size.
 
 Both versions take f32 [B, size/2] spectra and return f32 [B, size/2]: the
 middle half [size/4, 3size/4) of the size-sample inverse transform.
@@ -27,6 +32,7 @@ from carta1_tpu_torch import kernels
 from carta1_tpu_torch.tables import imdct_tables
 
 SIZES = (64, 256, 512)
+TILE = {64: 32, 256: 32, 512: 16}   # rows per block in csrc/imdct_exact.cu
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,7 +48,7 @@ def _tables(size: int, device: torch.device) -> tuple[torch.Tensor, ...]:
 def _kernel():
     lib = kernels.library("imdct_exact")
     fn = lib.carta1_imdct_mid
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -50,7 +56,7 @@ def _kernel():
 def _check(x: torch.Tensor, size: int) -> None:
     if size not in SIZES:
         raise ValueError(f"imdct size must be one of {SIZES}, got {size}")
-    kernels.require(x, "imdct_mid", torch.float32, 2)
+    kernels.require(x, "imdct_mid", torch.float32, 2, align=16)
     if x.shape[1] != size >> 1:
         raise ValueError(f"imdct_mid: need [B, {size >> 1}] spectra, got {tuple(x.shape)}")
 
@@ -108,11 +114,13 @@ def imdct_mid(x: torch.Tensor, size: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
-    sincos, perm, tw_re, tw_im = _tables(size, x.device)
+    sincos, _, tw_re, tw_im = _tables(size, x.device)
+    host = imdct_tables(size)           # cached: the arrays outlive the call that reads them
     lib, fn = _kernel()
     err = fn(
-        kernels.ptr(x), kernels.ptr(out), kernels.ptr(sincos), kernels.ptr(perm),
-        kernels.ptr(tw_re), kernels.ptr(tw_im), x.shape[0], size, kernels.stream_handle(x),
+        kernels.ptr(x), kernels.ptr(out), kernels.ptr(sincos), kernels.ptr(tw_re), kernels.ptr(tw_im),
+        host[0].ctypes.data, host[2].ctypes.data, host[3].ctypes.data,
+        x.shape[0], size, kernels.stream_handle(x),
     )
     kernels.check(lib, err, f"imdct_exact_{size}")
     kernels.count(f"imdct_exact_{size}")

@@ -8,10 +8,14 @@ carries the f64 sums as f32 error-free expansions; the CUDA kernel
 `qmf_synthesis_stream`): an IEEE f64 sum over the 24 taps in tap order,
 rounded once to f32.
 
-Bound on the H100: bytes -- 16-17 bytes of device traffic per output pair
-against 96 f64 operations, within a factor of two of each other.  The
-reference fixes the summation order, so the design is one thread per
-output pair with the sequential loop in registers.
+Bound on the H100: operations -- 96 f64 multiplies and adds per output
+pair that may not fuse (half the FMA rate), beside 16-17 bytes of device
+traffic; f32 -> f64 widenings run at a quarter of the add rate.  A block
+stages its rows' samples in shared memory once (8-byte `cp.async`); a
+thread computes `PAIRS` consecutive output pairs, widening each sample of
+its window once and feeding it to every output that uses it, the taps of
+each output still in order j = 0..23; the taps are kernel parameters.
+`tile_rows(s)` is the rows one block takes.
 
 Both versions take the halo-prefixed work stream f32 [B, 46 + 2s] and
 return f32 [B, 2s] with out[2i] = s1[i], out[2i+1] = s0[i].
@@ -29,12 +33,16 @@ from carta1_tpu_torch import kernels
 from carta1_tpu_torch.constants import QMF_DELAY, QMF_EVEN, QMF_ODD
 
 _NTAPS = 24
+_TAPS = np.concatenate([QMF_EVEN, QMF_ODD]).astype(np.float64)   # exact f32 -> f64; read by each launch
+
+# the tiling of csrc/qmf_taps.cu
+THREADS = 128
+PAIRS = 8
 
 
-@functools.lru_cache(maxsize=None)
-def _taps(device: torch.device) -> torch.Tensor:
-    both = np.concatenate([QMF_EVEN, QMF_ODD]).astype(np.float64)   # exact f32 -> f64
-    return torch.from_numpy(both).to(device)
+def tile_rows(s: int) -> int:
+    """Rows of [B, 46 + 2s] work that one block of the kernel takes."""
+    return THREADS // min(-(-s // PAIRS), 256 // PAIRS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,7 +55,7 @@ def _kernel():
 
 
 def _check(work: torch.Tensor) -> int:
-    kernels.require(work, "qmf_taps", torch.float32, 2)
+    kernels.require(work, "qmf_taps", torch.float32, 2, align=8)
     w = work.shape[1]
     if w < QMF_DELAY + 2 or (w - QMF_DELAY) % 2:
         raise ValueError(f"qmf_taps: need [B, 46 + 2s] work, got {tuple(work.shape)}")
@@ -80,7 +88,7 @@ def qmf_taps(work: torch.Tensor) -> torch.Tensor:
         return out
     lib, fn = _kernel()
     err = fn(
-        kernels.ptr(work), kernels.ptr(out), kernels.ptr(_taps(work.device)),
+        kernels.ptr(work), kernels.ptr(out), _TAPS.ctypes.data,
         work.shape[0], s, kernels.stream_handle(work),
     )
     kernels.check(lib, err, "qmf_taps")

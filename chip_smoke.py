@@ -9,8 +9,11 @@ Phases (each raises on failure; nothing is caught):
   2. build: compiles every kernel of the decode path (K1 IMDCT at sizes
      64/256/512, K2 QMF taps, K3 field read) from carta1_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes one stereo 8192-frame chunk gives it: 0 differing words
-     allowed; kernel, plain and library-call times and the kernel's bound;
+     shapes one stereo 8192-frame chunk gives it, and K1 and K2 on edge
+     inputs too (batches around a block's tile, small widths, +0, -0,
+     denormals, overflow to inf, lone samples at a row's ends): 0 differing
+     words allowed; kernel, plain and library-call times, the kernel's
+     bound, and the time of an empty launch through the same route;
   4. the golden fixture decoded to int16 on the card equals
      tests/fixtures/golden_decode.npz exactly;
   5. the main path: a stereo stream of 4 x 8192 frames per channel through
@@ -40,11 +43,12 @@ import torch
 
 CHUNK = 8192
 CHUNKS = 4
-# NVIDIA H100 SXM data sheet peaks (dense, 700 W): HBM3 bytes/s and FP64 FLOP/s
-# outside the tensor cores.  Both bound the exact kernels, which do f64 math
-# without FMA, so the op bound is optimistic by up to 2x (an FMA counts as 2).
+# NVIDIA H100 SXM data sheet peaks (dense, 700 W): HBM3 bytes/s, and FP64
+# outside the tensor cores.  The sheet's 34 TFLOP/s counts an FMA as two
+# operations; the exact kernels may not fuse a multiply with an add, so the
+# rate they can reach is half of it.
 PEAK_BYTES_S = 3.35e12
-PEAK_F64_S = 34e12
+PEAK_F64_S = 17e12
 
 
 def _smi() -> str:
@@ -53,20 +57,6 @@ def _smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def _time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over reps launches, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _mismatch(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
@@ -113,7 +103,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs the GPU", file=sys.stderr)
         return 2
 
-    from carta1_tpu_torch import decode_units, kernels
+    from carta1_tpu_torch import decode_units, kernels, testing
     from carta1_tpu_torch.constants import QMF_EVEN, QMF_ODD
     from carta1_tpu_torch.io.aea import read_aea
     from carta1_tpu_torch.ops import bitpack, bitpack_kernels, imdct_kernels, qmf_kernels
@@ -155,8 +145,13 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     rows = []
 
-    def check(kname, cases, plain_fn, kernel_fn, nbytes, ops, reps, library=None):
+    def check(kname, cases, plain_fn, kernel_fn, nbytes, ops, reps, library=None, edge_cases=()):
         bad, err = 0, 0.0
+        for case in edge_cases:
+            m, _ = _mismatch(kernel_fn(*case), plain_fn(*case))
+            if m:
+                raise AssertionError(f"{kname}: {m} words differ from the plain version on the edge input "
+                                     f"{[tuple(t.shape) if isinstance(t, torch.Tensor) else t for t in case]}")
         for case in cases:
             got = kernel_fn(*case)
             want = plain_fn(*case)
@@ -165,27 +160,34 @@ def main() -> int:
             bad, err = bad + m, max(err, e)
         if bad:
             raise AssertionError(f"{kname}: {bad} words differ from the plain version (max abs {err})")
-        ms = _time_ms(lambda: [kernel_fn(*a) for a in cases], reps)
-        plain_ms = _time_ms(lambda: [plain_fn(*a) for a in cases], max(2, reps // 10), warmup=1)
-        lib_ms = _time_ms(library, reps) if library is not None else None
+        ms, host_ms = kernels.time_ms(lambda: [kernel_fn(*a) for a in cases], reps)
+        plain_ms, _ = kernels.time_ms(lambda: [plain_fn(*a) for a in cases], max(2, reps // 10), warmup=1)
+        lib_ms = kernels.time_ms(library, reps)[0] if library is not None else None
         bound, by = _bound_ms(nbytes, ops)
         src, replaces = kernels.KERNELS[kname]
         rows.append({
             "name": kname, "route": "cuda", "source": f"carta1_tpu_torch/csrc/{src}.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms, "host_ms": host_ms,
             "shapes": [[list(t.shape) for t in a if isinstance(t, torch.Tensor)] for a in cases],
         })
-        print(f"{kname}: 0 words differ from the plain version; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound:.4f} ({by}) "
+        print(f"{kname}: 0 words differ from the plain version ({len(edge_cases)} edge inputs too); kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms {bound:.4f} ({by}) "
               f"library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)}")
+
+    empty_ms, empty_host_ms = kernels.time_ms(lambda: kernels.empty_launch(dev), 200)
+    print(f"empty launch through ctypes: {empty_ms:.4f} ms on the device, {empty_host_ms:.4f} ms of host time, "
+          "each, back to back on one stream")
+    record["empty_launch_ms"] = {"device": empty_ms, "host": empty_host_ms}
 
     for size, batch in ((64, n64), (256, 2 * frames), (512, frames)):
         x = _spectra(rng, batch, size // 2, dev)
+        edges = [(torch.from_numpy(testing.imdct_edge_spectra(size, b, sd)).to(dev), size)
+                 for b, sd in testing.edge_cases(imdct_kernels.TILE[size])]
         n = size // 4
         ops = batch * (12 * n + 10 * (n // 2) * (n.bit_length() - 1))
-        table_bytes = (size // 2) * 8 + n * 4 + 2 * (n - 1) * 8
+        table_bytes = (size // 2) * 8 + 2 * (n - 1) * 8
         check(f"imdct_exact_{size}", [(x, size)], imdct_kernels.imdct_mid_plain,
-              imdct_kernels.imdct_mid, x.numel() * 8 + table_bytes, ops, reps=50)
+              imdct_kernels.imdct_mid, x.numel() * 8 + table_bytes, ops, reps=50, edge_cases=edges)
 
     works = [(torch.from_numpy(rng.standard_normal((frames, 46 + 2 * s)).astype(np.float32)).to(dev),)
              for s in (128, 256)]
@@ -199,7 +201,10 @@ def main() -> int:
     check("qmf_taps", works, qmf_kernels.qmf_taps_plain, qmf_kernels.qmf_taps,
           sum(w[0].numel() * 4 + frames * (w[0].shape[1] - 46) * 4 for w in works) + 48 * 8,
           sum(frames * (w[0].shape[1] - 46) // 2 * 96 for w in works), reps=50,
-          library=lambda: [torch.nn.functional.conv1d(w, synth, stride=2) for w in works64])
+          library=lambda: [torch.nn.functional.conv1d(w, synth, stride=2) for w in works64],
+          edge_cases=[(torch.from_numpy(testing.qmf_edge_work(b, s, sd)).to(dev),)
+                      for s in (2, 7, 128, 256) for b, sd in testing.edge_cases(qmf_kernels.tile_rows(s))]
+          + [(torch.from_numpy(testing.qmf_edge_work(5, 611, 0)).to(dev),)])      # more than one column tile
 
     reads = bitpack.field_reads(chunk.reshape(-1, 212))
     read_bytes = reads[0][0].numel() * 4 + sum(r[1].numel() * 12 for r in reads)
@@ -279,8 +284,13 @@ def main() -> int:
     print(f"profile of one stereo chunk: device busy {device_ms:.3f} ms of {chunk_ms:.3f} ms host wall "
           f"(unprofiled) = idle share {1 - device_ms / chunk_ms:.3f}; {device_launches} device launches; top: "
           + "; ".join(f"{k[:40]} x{c} {ms:.3f} ms" for k, c, ms in ops[:6]))
+    hand = [(e.key, e.count, e.self_device_time_total / 1e3) for e in events
+            if e.device_type == cuda and any(w in e.key for w in ("imdct", "qmf_taps", "read_fields"))]
+    print("hand kernels in that chunk (device ms, all launches): "
+          + "; ".join(f"{k.replace('(anonymous namespace)::', '').split('(')[0]} x{c} {ms:.4f}" for k, c, ms in hand))
     record["profile_one_chunk"] = {
         "device_ms": device_ms, "host_wall_ms_unprofiled": chunk_ms, "device_launches": device_launches,
+        "hand_kernels": [{"name": k, "count": c, "device_ms": ms} for k, c, ms in hand],
         "ops": [{"name": k, "count": c, "self_device_ms": ms} for k, c, ms in ops[:30]],
         "device_rows": sorted(([e.key, e.count, e.self_device_time_total / 1e3] for e in events
                                if e.device_type == cuda), key=lambda r: -r[2])[:30],

@@ -31,10 +31,12 @@ from carta1_tpu.ops.exact_decode import imdct_exact_xla, qmf_synthesis_exact
 
 import carta1_tpu_torch
 from carta1_tpu_torch import constants as C
-from carta1_tpu_torch import convert, decode_frames, decode_units
+from carta1_tpu_torch import convert, decode_frames, decode_units, testing
 from carta1_tpu_torch.ops.coding import quant_range, word_length_bits
 from carta1_tpu_torch.ops import exact_decode as X
+from carta1_tpu_torch.ops.imdct_kernels import TILE, imdct_mid_plain
 from carta1_tpu_torch.ops.pcm import float_to_int16
+from carta1_tpu_torch.ops.qmf_kernels import qmf_taps_plain, tile_rows
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,6 +117,43 @@ def test_float_to_int16_matches_host():
         (np.arange(-40, 40) + 0.5) / 32767.0,   # near the positive scale's integer boundaries
     ]).astype(np.float32)
     assert np.array_equal(float_to_int16(_t(x)).numpy(), host_float_to_int16(x))
+
+
+# ---------------------------------------------------------------------------
+# The kernels' yardsticks on the edge inputs of the tiled kernels: batches
+# around a block's tile of rows, +0, -0, denormals, overflow at the last
+# rounding, lone samples at a row's ends (carta1_tpu_torch/testing.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("size", [64, 256, 512])
+def test_imdct_plain_edge_inputs_match_gold(size):
+    infs = 0
+    for batch, seed in testing.edge_cases(TILE[size]):
+        x = testing.imdct_edge_spectra(size, batch, seed)
+        with np.errstate(over="ignore"):
+            want = imdct(x, size)[:, size // 4: 3 * size // 4]
+        assert not np.isnan(want).any()
+        infs += int(np.isinf(want).sum())
+        assert _bits_equal(imdct_mid_plain(_t(x), size).numpy(), want), (batch, seed)
+    assert infs > 0                                         # the overflow rows did overflow
+
+
+@pytest.mark.parametrize("s", [2, 7, 128, 256])
+def test_qmf_plain_edge_inputs_match_gold(s):
+    infs = 0
+    for frames, seed in testing.edge_cases(tile_rows(s)):
+        low, high, delay = testing.qmf_edge_bands(frames, s, seed)
+        with np.errstate(over="ignore"):
+            if 2 * s >= C.QMF_DELAY:                    # one stream, the halo chained over its frames
+                want, _ = qmf_synthesis_stream(low.reshape(-1), high.reshape(-1), delay)
+                got, _ = X.qmf_synthesis_exact(_t(low), _t(high), _t(delay), plain=True)
+            else:                                       # frames shorter than the halo: one stream per row
+                work = testing.qmf_edge_work(frames, s, seed)
+                want, _ = qmf_synthesis_stream(low, high, work[:, :C.QMF_DELAY])
+                got = qmf_taps_plain(_t(work))
+        assert not np.isnan(want).any()
+        infs += int(np.isinf(want).sum())
+        assert _bits_equal(got.numpy().reshape(want.shape), want), (frames, seed)
+    assert infs > 0 or 2 * s < C.QMF_DELAY                  # a short row holds no full window of F32_MAX
 
 
 # ---------------------------------------------------------------------------

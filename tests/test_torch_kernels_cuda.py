@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from carta1_tpu_torch import decode_units, kernels
+from carta1_tpu_torch import decode_units, kernels, testing
 from carta1_tpu_torch.io.aea import read_aea
 from carta1_tpu_torch.ops import bitpack, bitpack_kernels, imdct_kernels, qmf_kernels
 
@@ -56,6 +56,32 @@ def test_imdct_kernel_matches_plain(card, size):
 @pytest.mark.parametrize("s", [128, 256])
 def test_qmf_kernel_matches_plain(card, s):
     work = torch.from_numpy(np.random.default_rng(s).standard_normal((300, 46 + 2 * s)).astype(np.float32)).to(card)
+    assert _same_bits(qmf_kernels.qmf_taps(work), qmf_kernels.qmf_taps_plain(work))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", imdct_kernels.SIZES)
+def test_imdct_kernel_edge_inputs_match_plain(card, size):
+    """Batches around a block's tile; +0, -0, denormals, overflow at the
+    last rounding, lone coefficients at a row's ends."""
+    for batch, seed in testing.edge_cases(imdct_kernels.TILE[size]):
+        x = torch.from_numpy(testing.imdct_edge_spectra(size, batch, seed)).to(card)
+        assert _same_bits(imdct_kernels.imdct_mid(x, size), imdct_kernels.imdct_mid_plain(x, size)), (batch, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 7, 128, 256])
+def test_qmf_kernel_edge_inputs_match_plain(card, s):
+    for batch, seed in testing.edge_cases(qmf_kernels.tile_rows(s)):
+        work = torch.from_numpy(testing.qmf_edge_work(batch, s, seed)).to(card)
+        assert _same_bits(qmf_kernels.qmf_taps(work), qmf_kernels.qmf_taps_plain(work)), (batch, seed)
+
+
+@pytest.mark.cuda
+def test_qmf_kernel_wide_rows_match_plain(card):
+    """A width that is no multiple of a thread's run of pairs and spans
+    more than one column tile."""
+    work = torch.from_numpy(np.random.default_rng(3).standard_normal((5, 46 + 2 * 611)).astype(np.float32)).to(card)
     assert _same_bits(qmf_kernels.qmf_taps(work), qmf_kernels.qmf_taps_plain(work))
 
 
