@@ -1,4 +1,4 @@
-"""carta1_tpu_torch: the bit-exact ATRAC1 decode path in PyTorch and CUDA.
+"""carta1_tpu_torch: the ATRAC1 codec (encode and bit-exact decode) in PyTorch and CUDA.
 
 The port of `carta1_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100.  It
 imports neither JAX nor `carta1_tpu`; the JAX package is the reference it
@@ -16,7 +16,13 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from carta1_tpu_torch.framedata import FrameData  # noqa: E402
+from carta1_tpu_torch.options import EncoderOptions  # noqa: E402
 from carta1_tpu_torch.pipeline.decoder import decode_frames, decode_step, decoder_init_state  # noqa: E402
-from carta1_tpu_torch.processor import decode_units  # noqa: E402
+from carta1_tpu_torch.pipeline.encoder import encode_frames, encode_step, encoder_init_state  # noqa: E402
+from carta1_tpu_torch.processor import decode_units, encode_pcm  # noqa: E402
 
-__all__ = ["FrameData", "decode_frames", "decode_step", "decoder_init_state", "decode_units"]
+__all__ = [
+    "EncoderOptions", "FrameData",
+    "decode_frames", "decode_step", "decoder_init_state", "decode_units",
+    "encode_frames", "encode_step", "encoder_init_state", "encode_pcm",
+]

@@ -1,6 +1,6 @@
-"""ATRAC1 format constants and tables that the decode path needs.
+"""ATRAC1 format constants and tables of the codec (encode and decode).
 
-An independent copy of the decode half of `carta1_tpu/constants.py`: the
+An independent copy of what the port needs of `carta1_tpu/constants.py`: the
 port imports nothing of the JAX package (importing any of its modules
 loads JAX), so every table is rebuilt here by the same code, in float64
 as the reference computes it.
@@ -9,7 +9,7 @@ Parity notes (reference: aynik/carta1):
   * frame geometry / AEA layout  -> codec/core/constants.js:6-22
   * BFU layout tables            -> codec/core/constants.js:25-52
   * windows / QMF filter         -> codec/core/constants.js:60-107
-  * scale factors                -> codec/core/constants.js:141-150
+  * transform + serialization    -> codec/core/constants.js:110-160
 """
 
 from __future__ import annotations
@@ -31,12 +31,14 @@ AEA_CHANNEL_COUNT_OFFSET = 264
 
 SOUND_UNIT_SIZE = 212
 FRAME_BITS = SOUND_UNIT_SIZE * 8           # 1696
+FRAME_OVERHEAD_BITS = 40
 
 # ---------------------------------------------------------------------------
 # BFU (Block Floating Unit) layout
 # ---------------------------------------------------------------------------
 NUM_BFUS = 52
 MAX_BFU_SIZE = 20
+BITS_PER_BFU_METADATA = 10
 
 SPECS_PER_BFU = np.array(
     [8, 8, 8, 8, 4, 4, 4, 4, 8, 8, 8, 8, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6,
@@ -73,6 +75,8 @@ BAND_OFFSETS = np.array([0, 128, 256, 512], dtype=np.int32)
 WINDOW_SHORT = np.sin((np.arange(32, dtype=np.float64) + 0.5) * np.pi / 64.0)
 
 MDCT_BAND_SIZES = (128, 128, 256)          # band samples per frame
+MDCT_WINDOW_START = (48, 48, 112)          # overlap placement inside the MDCT input
+MDCT_TRANSFORM_SIZES = (256, 256, 512)     # long-block MDCT input length per band
 MDCT_TAIL_WINDOW_SIZE = 16
 MDCT_NUM_SHORT_BLOCKS = (4, 4, 8)
 
@@ -98,6 +102,18 @@ QMF_WINDOW[24:] = (_QMF_PROTO * np.float32(2.0))[::-1]
 QMF_EVEN = QMF_WINDOW[0::2].copy()   # [24]
 QMF_ODD = QMF_WINDOW[1::2].copy()    # [24]
 
+# Whole-signal convolution form of the analysis filterbank.  With
+# work = [delay(46); input], the reference computes (qmf.js:32-45)
+#   low[i]  = sum_t work[2i+t] * W[47-t]
+#   high[i] = sum_t work[2i+t] * W[47-t] * (+1 if t odd else -1)
+# i.e. a stride-2 correlation with the kernels below.
+_t = np.arange(QMF_TAPS)
+QMF_KERNEL_LOW = QMF_WINDOW[47 - _t].astype(np.float32)            # [48]
+QMF_KERNEL_HIGH = (QMF_KERNEL_LOW * np.where(_t % 2 == 1, 1.0, -1.0)).astype(np.float32)
+
+# transient detection FFT sizes per band (constants.js:110-113)
+TRANSIENT_FFT_SIZES = (128, 128, 256)
+
 # ---------------------------------------------------------------------------
 # Serialization, quantization and PCM
 # ---------------------------------------------------------------------------
@@ -108,6 +124,11 @@ WORD_LENGTH_BITS = np.array(
 
 # scale factor table 2^(i/3 - 21) (f64, constants.js:144-150)
 SCALE_FACTORS = np.power(2.0, np.arange(64, dtype=np.float64) / 3.0 - 21.0)
+
+# 2^-b distortion table (f64, constants.js:153-160)
+INV_POWER_OF_TWO = np.power(2.0, -np.arange(int(WORD_LENGTH_BITS[15]) + 1, dtype=np.float64))
+
+CODEC_DELAY = 266  # total algorithmic latency in samples (tests/decoder.test.js:22)
 
 WAV_BITS_PER_SAMPLE = 16
 WAV_BYTES_PER_SAMPLE = 2

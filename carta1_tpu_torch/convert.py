@@ -1,9 +1,11 @@
 """Moving stream state and frame data between NumPy and the port.
 
-The JAX package and the gold engine keep the decoder state as a dict of
-NumPy-convertible arrays (`tail0-2`, `synth_low/mid/high_delay`) and
-frames as a NumPy `FrameData`; these helpers map both into torch and back,
-so that either package can pick up a stream where the other left it.
+The JAX package and the gold engine keep a stream's state as a dict of
+NumPy-convertible arrays (decoder: `tail0-2`, `synth_low/mid/high_delay`;
+encoder: `qmf_*_delay`, `prev_spectrum0-2`, `band_tail0-2`) and frames as
+a NumPy `FrameData`; these helpers map both into torch and back, so that
+either package can pick up a stream where the other left it.  The encoder
+has no weights: state, tables and `FrameData` are all that crosses.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ import torch
 
 from carta1_tpu_torch.device import resolve_device
 from carta1_tpu_torch.framedata import FrameData
-from carta1_tpu_torch.pipeline.decoder import STATE_KEYS
 
 
 def framedata_from_numpy(fd, device=None) -> FrameData:
@@ -27,11 +28,17 @@ def framedata_from_numpy(fd, device=None) -> FrameData:
 
 
 def state_from_numpy(state: dict, device=None) -> dict[str, torch.Tensor]:
-    """Decoder state dict of arrays -> f32 tensors on `device`."""
+    """Encoder or decoder state dict of arrays -> f32 tensors on `device`."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.array(state[k], dtype=np.float32)).to(dev) for k in STATE_KEYS}
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev) for k, v in state.items()}
 
 
 def state_to_numpy(state: dict) -> dict[str, np.ndarray]:
-    """Decoder state dict of tensors -> f32 NumPy arrays on the host."""
-    return {k: state[k].detach().cpu().numpy() for k in STATE_KEYS}
+    """Encoder or decoder state dict of tensors -> f32 NumPy arrays on the host."""
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def framedata_to_numpy(fd: FrameData) -> dict[str, np.ndarray]:
+    """torch FrameData -> {field: int32 NumPy array}: the keyword arguments
+    of the JAX package's `FrameData`."""
+    return {k: getattr(fd, k).detach().cpu().numpy() for k in FrameData.fields()}

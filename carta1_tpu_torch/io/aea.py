@@ -1,4 +1,4 @@
-"""AEA container read (parity: codec/io/serialization.js:182-254,
+"""AEA container read and stereo (de)interleave (parity: codec/io/serialization.js:182-254,
 codec/io/readers.js).
 
 Layout: 2048-byte header -- magic 00 08 00 00, NUL-terminated ASCII title at
@@ -59,3 +59,11 @@ def read_aea(path: str) -> tuple[AeaMetadata, np.ndarray]:
 def deinterleave_stereo(units: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """[2F, 212] in L,R frame order -> ([F, 212], [F, 212])."""
     return units[0::2], units[1::2]
+
+
+def interleave_stereo(left: np.ndarray, right: np.ndarray) -> np.ndarray:
+    """[F, 212] x2 -> [2F, 212] in L,R frame order (processor.js:104-115)."""
+    out = np.empty((left.shape[0] + right.shape[0], SOUND_UNIT_SIZE), np.uint8)
+    out[0::2] = left
+    out[1::2] = right
+    return out

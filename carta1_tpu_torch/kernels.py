@@ -39,13 +39,16 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# kernel name -> (library, TPU kernel it replaces).  One library per source.
+# kernel name -> (library, what it replaces in the JAX package: a Pallas
+# kernel, or for alloc_sweep the lax.scan that XLA compiled into one
+# program).  One library per source.
 KERNELS = {
     "imdct_exact_64": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
     "imdct_exact_256": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
     "imdct_exact_512": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
     "qmf_taps": ("qmf_taps", "carta1_tpu/ops/exact_qmf_pallas.py:79"),
     "read_fields": ("bitpack_read", "carta1_tpu/ops/bitpack_pallas.py:39"),
+    "alloc_sweep": ("alloc_sweep", "carta1_tpu/ops/bitalloc.py:58"),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in KERNELS.values()}))
 

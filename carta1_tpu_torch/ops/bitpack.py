@@ -1,9 +1,10 @@
-"""Batched sound-unit unpack on the device.
+"""Batched sound-unit pack and unpack on the device.
 
-Bit layout parity: codec/io/serialization.js:111-176 (MSB first,
+Bit layout parity: codec/io/serialization.js:41-176 (MSB first,
 two's-complement coefficients); semantics of `carta1_tpu/ops/bitpack.py`
-`unpack_frames`, including all eight BFU_AMOUNTS and the truncated-field
-rule for malformed units (bitstream.js:55).
+`pack_frames` (the encoder's static nBfu = 52 layout) and `unpack_frames`,
+including all eight BFU_AMOUNTS and the truncated-field rule for malformed
+units (bitstream.js:55).
 
 The unit is viewed as 106 big-endian halfwords padded to 128; a field of
 width <= 16 at bit offset r in [0, 16) of halfword h lies inside the
@@ -12,6 +13,14 @@ offsets 16 + 4i (nibbles of halfwords 1..13); scale factors start at
 16 + 4 nBfu (anchors in [6, 34)); coefficients at 16 + 10 nBfu (anchors
 in [13, 107)).  Both dynamic reads go through kernel K3
 (`ops/bitpack_kernels.read_fields`).
+
+Packing runs the same windows the other way: every field (header, word
+lengths, scale factors, coefficients) is shifted into place inside the
+32-bit window anchored at its halfword, and the windows of a unit are
+summed per anchor.  Fields never share a bit, so the sum is exact in any
+order (one integer `scatter_add_`, where the JAX package selects and sums
+over [F, 1040, 74] because the TPU runtime has no fast scatter).  PyTorch
+has no uint32 arithmetic; windows are held in int64.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ _NS = C.MAX_BFU_SIZE
 _NHALF = C.SOUND_UNIT_SIZE // 2               # 106 halfwords per unit
 _NHALF_PAD = bitpack_kernels.N_ANCHORS        # 128
 
+_COEFF_BASE = C.FRAME_HEADER_BITS + 10 * _NF   # 536: first coefficient bit when n_bfu == 52
+_DUMP = _NHALF                                # window column of fields anchored past the unit
+
 _SF_J = (6, 34)
 _COEFF_J = (13, _NHALF + 1)            # [13, 107): +1 for the straddle window
 
@@ -37,6 +49,15 @@ _COEFF_J = (13, _NHALF + 1)            # [13, 107): +1 for the straddle window
 @functools.lru_cache(maxsize=None)
 def _slot_mask(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(C.BFU_SLOT_MASK).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _static_offsets(device: torch.device) -> torch.Tensor:
+    """Bit offsets of the header, the 52 word lengths and the 52 scale
+    factors of an n_bfu == 52 unit: int64 [105]."""
+    i = torch.arange(_NF, device=device)
+    return torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                      C.FRAME_HEADER_BITS + 4 * i, C.FRAME_HEADER_BITS + 4 * _NF + 6 * i])
 
 
 def _halfwords(units: torch.Tensor) -> torch.Tensor:
@@ -130,3 +151,48 @@ def unpack_frames(units: torch.Tensor, plain: bool = False) -> FrameData:
         word_lengths=out(lay["word_lengths"]),
         quantized=out(quantized),
     )
+
+
+def pack_frames(fd: FrameData) -> torch.Tensor:
+    """FrameData [..., F, ...] (n_bfu must be 52, the encoder invariant) ->
+    uint8 [..., F, 212]."""
+    lead = fd.word_lengths.shape[:-1]
+    dev = fd.word_lengths.device
+    wl = fd.word_lengths.reshape(-1, _NF).long()
+    sf = fd.scale_factors.reshape(-1, _NF).long()
+    q = fd.quantized.reshape(-1, _NF, _NS).long()
+    modes = fd.block_modes.reshape(-1, 3).long()
+    n = wl.shape[0]
+
+    header = (
+        ((2 - modes[:, 0]) << 14) | ((2 - modes[:, 1]) << 12) | ((3 - modes[:, 2]) << 10) | (7 << 5)
+    ) & 0xFFFF                                                        # 7 = BFU_AMOUNTS.index(52)
+
+    widths_bfu = word_length_bits(wl)                                           # [N, 52]
+    flat_w = torch.where(_slot_mask(dev), widths_bfu[:, :, None], 0).reshape(n, _NF * _NS)
+    coeff_off = _COEFF_BASE + torch.cumsum(flat_w, dim=1) - flat_w              # [N, 1040]
+    coeff_vals = (q & ((1 << widths_bfu.clamp(min=1)) - 1)[:, :, None]).reshape(n, -1)
+    coeff_vals = torch.where(flat_w > 0, coeff_vals, 0)
+
+    # every field of a unit: value, bit offset, width (a width of 0 holds no bits)
+    vals = torch.cat([header[:, None], wl & 15, sf & 63, coeff_vals], dim=1)    # [N, 1145]
+    offs = torch.cat([_static_offsets(dev).expand(n, -1), coeff_off], dim=1)
+    static_w = torch.tensor([16] + [4] * _NF + [6] * _NF, dtype=torch.int64, device=dev)
+    widths = torch.cat([static_w.expand(n, -1), flat_w], dim=1)
+
+    # the field inside the 32-bit window anchored at its halfword; the shift
+    # is at most 31 (a width of 0 is shifted as 1 and carries the value 0)
+    anchor = offs >> 4
+    aligned = vals << (32 - (offs & 15) - widths.clamp(min=1))
+    # anchors past the unit are dropped (the reference stops at the buffer
+    # end, bitstream.js:24): they land in a column that is never read
+    anchor = torch.where(anchor < _DUMP, anchor, _DUMP)
+    win = torch.zeros((n, _DUMP + 1), dtype=torch.int64, device=dev)
+    win.scatter_add_(1, anchor, aligned)
+
+    # window j covers halfwords (j, j + 1); bit-disjoint fields recombine carry-free
+    half = (win[:, :_NHALF] >> 16) | torch.cat(
+        [torch.zeros_like(win[:, :1]), win[:, : _NHALF - 1] & 0xFFFF], dim=1
+    )
+    units = torch.stack([half >> 8, half & 0xFF], dim=-1).reshape(n, C.SOUND_UNIT_SIZE)
+    return units.to(torch.uint8).reshape(*lead, C.SOUND_UNIT_SIZE)

@@ -1,14 +1,43 @@
-"""Band-stream helpers of the QMF stage.
+"""QMF analysis filterbank and the band-stream delay.
 
-The exact synthesis filterbank itself is `ops.exact_decode.qmf_synthesis_exact`
+The reference's per-frame delay-line filtering (codec/transforms/qmf.js) is
+a 48-tap stride-2 correlation over [delay; signal]; batched over frames it
+is one f32 `conv1d` with a 46-sample inter-frame halo and two output
+channels (low, high), as in `carta1_tpu/ops/qmf.py`.  TF32 is off for
+cuDNN (package `__init__`), so the products are full f32.
+
+The exact synthesis filterbank is `ops.exact_decode.qmf_synthesis_exact`
 (kernel K2).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from carta1_tpu_torch import constants as C
 from carta1_tpu_torch.ops.common import halo_prefix
+
+
+@functools.lru_cache(maxsize=None)
+def _analysis_kernel(device: torch.device) -> torch.Tensor:
+    """[2, 1, 48]: low[i] = sum_t work[2i+t] * W[47-t]; high the same with
+    odd t positive and even t negative (qmf.js:32-45)."""
+    return torch.from_numpy(np.stack([C.QMF_KERNEL_LOW, C.QMF_KERNEL_HIGH])[:, None, :]).to(device)
+
+
+def qmf_analysis(x: torch.Tensor, delay: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: [..., F, L] one stream chunk as frames; delay: [..., 46] stream carry.
+
+    Returns (low [..., F, L/2], high [..., F, L/2], new_delay [..., 46])."""
+    work = halo_prefix(x, delay)                                        # [..., F, 46 + L]
+    out = torch.nn.functional.conv1d(
+        work.reshape(-1, 1, work.shape[-1]), _analysis_kernel(x.device), stride=2
+    )                                                                   # [N, 2, L/2]
+    out = out.reshape(*x.shape[:-1], 2, x.shape[-1] // 2)
+    return out[..., 0, :], out[..., 1, :], x[..., -1, -C.QMF_DELAY:].clone()
 
 
 def delay_stream(x: torch.Tensor, delay: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

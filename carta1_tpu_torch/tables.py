@@ -1,9 +1,10 @@
-"""Host float64 tables of the exact transforms.
+"""Host float64 tables of the transforms and the quantizer.
 
 Copies of the gold engine's table builders (`carta1_tpu/gold/transforms.py`
-`_sincos_table`, `carta1_tpu/gold/fftjs.py` `_bit_reverse_perm` and
-`_twiddles`), built by the same code so that each value is the same f64
-word, plus the packed per-size layout the IMDCT kernel reads.
+`_sincos_table`, `mdct_js`, `mdct_basis`; `carta1_tpu/gold/fftjs.py`
+`_bit_reverse_perm`, `_twiddles`, `fft_js`) and of the encoder tables of
+`carta1_tpu/ops/tables.py`, built by the same code so that each value is
+the same word, plus the packed per-size layout the IMDCT kernel reads.
 """
 
 from __future__ import annotations
@@ -12,7 +13,10 @@ import functools
 
 import numpy as np
 
-# Reference inverse transform instances (mdct.js:215-221)
+from carta1_tpu_torch import constants as C
+
+# Reference transform instances (mdct.js:215-221)
+MDCT_SCALES = {64: 0.5, 256: 0.5, 512: 1.0}
 IMDCT_SCALES = {64: 512.0, 256: 2048.0, 512: 2048.0}
 
 
@@ -84,3 +88,134 @@ def imdct_tables(size: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndar
     assert tw_re.shape == (n - 1,)
     perm = _bit_reverse_perm(n).astype(np.int32)
     return _sincos_table(size, IMDCT_SCALES[size]), perm, tw_re, tw_im
+
+
+# ---------------------------------------------------------------------------
+# Forward MDCT operators (encoder)
+# ---------------------------------------------------------------------------
+def _fft_f64(re: np.ndarray, im: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The reference's radix-2 DIT FFT (fft.js:14-68) over the last axis, on
+    f64 arrays: no store rounds, so this is the exact linear transform."""
+    n = re.shape[-1]
+    perm = _bit_reverse_perm(n)
+    re, im = np.ascontiguousarray(re[..., perm]), np.ascontiguousarray(im[..., perm])
+    stride = 2
+    while stride <= n:
+        half = stride >> 1
+        tr, ti = _twiddles(stride)
+        shape = re.shape[:-1] + (n // stride, stride)
+        rev, imv = re.reshape(shape), im.reshape(shape)
+        er, ei = rev[..., :half], imv[..., :half]
+        orr, oi = rev[..., half:], imv[..., half:]
+        t_r = orr * tr - oi * ti
+        t_i = orr * ti + oi * tr
+        re = np.concatenate([er + t_r, er - t_r], axis=-1).reshape(re.shape)
+        im = np.concatenate([ei + t_i, ei - t_i], axis=-1).reshape(im.shape)
+        stride <<= 1
+    return re, im
+
+
+def _mdct_f64(x: np.ndarray, size: int, scale: float) -> np.ndarray:
+    """Forward MDCT (mdct.js:54-122) on f64 input: [..., size] -> [..., size/2]."""
+    half, quarter = size >> 1, size >> 2
+    fft_size = half >> 1
+    n34 = 3 * quarter
+    tbl = _sincos_table(size, scale)
+    re = np.zeros(x.shape[:-1] + (fft_size,), dtype=np.float64)
+    im = np.zeros_like(re)
+
+    i = np.arange(0, quarter, 2)
+    r = x[..., n34 - 1 - i] + x[..., n34 + i]
+    s_ = x[..., quarter + i] - x[..., quarter - 1 - i]
+    c, s = tbl[i], tbl[i + 1]
+    re[..., i >> 1] = r * c + s_ * s
+    im[..., i >> 1] = s_ * c - r * s
+
+    i = np.arange(quarter, half, 2)
+    r = x[..., n34 - 1 - i] - x[..., i - quarter]
+    s_ = x[..., quarter + i] + x[..., 5 * quarter - 1 - i]
+    c, s = tbl[i], tbl[i + 1]
+    re[..., i >> 1] = r * c + s_ * s
+    im[..., i >> 1] = s_ * c - r * s
+
+    re, im = _fft_f64(re, im)
+
+    out = np.zeros(x.shape[:-1] + (half,), dtype=np.float64)
+    i = np.arange(fft_size)
+    c, s = tbl[i * 2], tbl[i * 2 + 1]
+    out[..., i * 2] = -re * c - im * s
+    out[..., half - 1 - i * 2] = -re * s + im * c
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def mdct_basis(size: int) -> np.ndarray:
+    """Exact f64 forward-MDCT matrix [size, size/2]: out = x @ mdct_basis(size).
+
+    The identity fed through the f64 path of the reference algorithm (the
+    transform is linear, so this is the exact operator)."""
+    return _mdct_f64(np.eye(size, dtype=np.float64), size, MDCT_SCALES[size])
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float64).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def encoder_mdct_tables() -> dict[str, np.ndarray]:
+    """Window-folded forward-MDCT matrices, f32.
+
+    Long blocks (encoder.js:221-251): the MDCT input of size `tsize` is
+    [zeros(ws), W_up*tail_prev, band (last 32 down-windowed), zeros], so
+      coeffs = tail_prev @ OV + band @ MAIN
+    with OV   = diag(W_up)  @ B[ws:ws+32]           [32, size]
+         MAIN = diag(w_vec) @ B[ws+32:ws+32+size]   [size, size]
+    where w_vec is 1 except W_down on the last 32 samples and B is the f64
+    basis of mdct256/mdct512.  Mid and high band spectra are reversed (a
+    column flip, folded in).
+
+    Short blocks (encoder.js:262-300): per 32-sample block,
+      coeffs_b = ov_raw_b @ SOV + block_b @ SMAIN   (each [32, 32])
+    with the per-block spectral reversal folded in for mid and high."""
+    w_up, w_down = C.WINDOW_SHORT, C.WINDOW_SHORT[::-1]
+    out = {}
+    for band in range(3):
+        size = C.MDCT_BAND_SIZES[band]
+        ws = C.MDCT_WINDOW_START[band]
+        basis = mdct_basis(C.MDCT_TRANSFORM_SIZES[band])
+        ov = w_up[:, None] * basis[ws:ws + 32]
+        w_vec = np.ones(size)
+        w_vec[-32:] = w_down
+        main = w_vec[:, None] * basis[ws + 32: ws + 32 + size]
+        if band > 0:
+            ov, main = ov[:, ::-1], main[:, ::-1]
+        out[f"long_ov{band}"] = _f32(ov)
+        out[f"long_main{band}"] = _f32(main)
+    b64 = mdct_basis(64)
+    sov = w_up[:, None] * b64[:32]
+    smain = w_down[:, None] * b64[32:]
+    out["short_ov"], out["short_main"] = _f32(sov), _f32(smain)
+    out["short_ov_rev"], out["short_main_rev"] = _f32(sov[:, ::-1]), _f32(smain[:, ::-1])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Quantizer and allocator tables
+# ---------------------------------------------------------------------------
+_bits = C.WORD_LENGTH_BITS.astype(np.int64)
+QUANT_RANGES = np.where(_bits > 0, (1 << np.maximum(_bits - 1, 0)) - 1, 0)   # [16] int
+
+# candidate steps wl -> wl + 1 for wl in 0..14 (bitallocation.js:91-105)
+_wl = np.arange(15)
+_b1 = C.WORD_LENGTH_BITS[_wl].astype(np.float64)
+_b2 = C.WORD_LENGTH_BITS[_wl + 1].astype(np.float64)
+_f1 = np.where(_b1 == 0, 2.0, 2.0 ** -_b1)
+_f2 = 2.0 ** -_b2
+RDO_STEP_GAIN = ((_f1 - _f2) / (_b2 - _b1)).astype(np.float32)   # [15]
+RDO_STEP_BITS = (_b2 - _b1).astype(np.int32)                     # [15]
+
+# per-candidate (bfu, wl) tables, flattened [52 * 15]
+RDO_CAND_BFU = np.repeat(np.arange(C.NUM_BFUS, dtype=np.int32), 15)
+RDO_CAND_WL = np.tile(np.arange(15, dtype=np.int32), C.NUM_BFUS)
+RDO_CAND_COST = (RDO_STEP_BITS[RDO_CAND_WL] * C.SPECS_PER_BFU[RDO_CAND_BFU]).astype(np.int32)
+RDO_BUDGET = int(C.FRAME_BITS - C.FRAME_OVERHEAD_BITS - C.NUM_BFUS * C.BITS_PER_BFU_METADATA)   # 1136

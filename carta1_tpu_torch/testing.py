@@ -1,4 +1,8 @@
-"""Seeded edge inputs for the tiled kernels K1 (IMDCT) and K2 (QMF taps).
+"""Seeded inputs for the kernels and the encoder checks.
+
+Edge inputs for the tiled kernels K1 (IMDCT), K2 (QMF taps) and K4
+(allocation sweep), the test signals of the encode-quality checks, and
+the amplitudes around every scale-factor table value.
 
 One NumPy generator, used by the CPU tests (plain versions against the
 gold engine), by the card tests and by `chip_smoke.py` (kernels against
@@ -108,3 +112,152 @@ def qmf_edge_work(frames: int, s: int, seed: int) -> np.ndarray:
     else:
         halo = edge_rows(frames, QMF_DELAY, seed + 5, F32_MAX)
     return np.concatenate([halo, merged], axis=1)
+
+
+# ---------------------------------------------------------------------------
+# K4: allocation sweep
+# ---------------------------------------------------------------------------
+def _pack_cands(bfu, cost, valid) -> np.ndarray:
+    return ((np.asarray(bfu) << 13) | (np.asarray(cost) << 1) | np.asarray(valid)).astype(np.int32)
+
+
+def sweep_edge_cases(block: int) -> list[tuple[str, np.ndarray]]:
+    """(name, candidates int32 [F, M]) for `alloc_sweep`, each candidate
+    packed bfu << 13 | cost << 1 | valid.  The sweep does not need its
+    candidates in priority order, so most cases shuffle the 780 real
+    (bfu, cost) steps per frame, which exercises the abandon rule hard.
+    `block` is the number of frames one block of the kernel takes."""
+    from carta1_tpu_torch.tables import RDO_BUDGET, RDO_CAND_BFU, RDO_CAND_COST
+
+    rng = np.random.default_rng(404)
+    ncand = RDO_CAND_BFU.size
+
+    def shuffled(frames: int, p_valid: float = 0.8) -> np.ndarray:
+        order = np.argsort(rng.random((frames, ncand)), axis=1)
+        valid = (rng.random((frames, ncand)) < p_valid).astype(np.int32)
+        return _pack_cands(RDO_CAND_BFU[order], RDO_CAND_COST[order], valid)
+
+    cases = [(f"shuffled, {f} frames", shuffled(f)) for f in sorted({1, 2, block - 1, block, block + 1, 2 * block + 3})]
+    cases.append(("all candidates invalid", shuffled(block + 1, p_valid=0.0)))
+    # every step costs more than the whole budget: each BFU is abandoned at its first step
+    cases.append(("every BFU abandoned at once", _pack_cands(
+        np.tile(RDO_CAND_BFU, (5, 1)), np.full((5, ncand), 0xFFF), np.ones((5, ncand), np.int32))))
+    # BFU 0 takes the whole budget in one step; BFU 1's 1-bit step no longer
+    # fits and abandons it; zero-cost steps of BFUs 2 and 1 still come: 2 takes them, 1 does not
+    exact = np.zeros((3, 8), np.int32)
+    exact[:] = _pack_cands([0, 1, 2, 2, 1, 0, 3, 2], [RDO_BUDGET, 1, 0, 0, 0, 1, 0, 0], [1, 1, 1, 1, 1, 1, 0, 1])
+    cases.append(("budget met exactly, then zero-cost steps", exact))
+    cases.append(("zero-cost steps only", _pack_cands(
+        rng.integers(0, 52, (block + 2, ncand)), np.zeros((block + 2, ncand), np.int32),
+        rng.integers(0, 2, (block + 2, ncand)))))
+    # widths that are no multiple of the kernel's tile, and BFU fields past 51 (ignored in the output)
+    for m in (1, 31, 33, 100):
+        cases.append((f"{m} candidates, BFU fields up to 63", _pack_cands(
+            rng.integers(0, 64, (7, m)), rng.integers(0, 300, (7, m)), rng.integers(0, 2, (7, m)))))
+    return cases
+
+
+def sweep_reference(cands: np.ndarray, budget: int) -> np.ndarray:
+    """The sweep as a plain Python loop (gold/coding.py allocate_bits_sweep,
+    lines 196-211), the yardstick of `alloc_sweep_plain`: int32 [F, 52]."""
+    out = np.zeros((cands.shape[0], 64), np.int32)
+    for f, row in enumerate(cands):
+        remaining, abandoned = budget, set()
+        for c in row.tolist():
+            bfu, cost, valid = (c >> 13) & 63, (c >> 1) & 0xFFF, c & 1
+            if not valid or bfu in abandoned:
+                continue
+            if cost > remaining:
+                abandoned.add(bfu)
+                continue
+            remaining -= cost
+            out[f, bfu] += 1
+    return out[:, :52]
+
+
+# ---------------------------------------------------------------------------
+# Encoder checks
+# ---------------------------------------------------------------------------
+def scale_factor_edge_amplitudes(ulps: int = 4) -> np.ndarray:
+    """f32 [64 * (2 * ulps + 1)]: for every scale-factor table value
+    2^(i/3 - 21), the f32 values from `ulps` below its f32 rounding to
+    `ulps` above: where ceil(3 * (log2(a) + 21)) changes its mind."""
+    from carta1_tpu_torch.constants import SCALE_FACTORS
+
+    out = []
+    for v in SCALE_FACTORS:
+        a = np.float32(v)
+        for _ in range(ulps):
+            a = np.nextafter(a, np.float32(0))
+        for _ in range(2 * ulps + 1):
+            out.append(a)
+            a = np.nextafter(a, np.float32(np.inf))
+    return np.array(out, np.float32)
+
+
+def scale_factor_faults(got: np.ndarray, want: np.ndarray, peaks: np.ndarray, atol: float = 1e-7) -> int:
+    """How many scale factor indices of an f32-MDCT encoder (`got`, int
+    [F, 52], with the BFU peaks f32 [F, 52] it computed) differ from the gold
+    engine's (`want`) for another reason than rounding: an index may be one
+    off where the peak lies within `atol` (about two f32 ulps of full
+    scale: the rounding floor of an f32 transform; the measured distances
+    are below 4e-9) of the table value that separates the two indices.  The
+    JAX encoder differs from the gold engine in exactly such places."""
+    from carta1_tpu_torch.constants import SCALE_FACTORS
+
+    got, want = got.astype(np.int64), want.astype(np.int64)
+    boundary = SCALE_FACTORS[np.minimum(got, want)]
+    excused = (np.abs(got - want) == 1) & (np.abs(peaks.astype(np.float64) - boundary) <= atol)
+    return int(((got != want) & ~excused).sum())
+
+
+def signals(seconds: float = 3.0) -> dict[str, np.ndarray]:
+    """The six signal classes of the encode-quality report
+    (`quality_report.py` `signals`), f32 in [-1, 1], regenerated from their seed."""
+    n = int(44100 * seconds)
+    t = np.arange(n) / 44100.0
+    rng = np.random.default_rng(7)
+    out = {}
+    out["sine_440"] = 0.7 * np.sin(2 * np.pi * 440 * t)
+    out["sine_mix"] = (
+        0.4 * np.sin(2 * np.pi * 220 * t)
+        + 0.25 * np.sin(2 * np.pi * 3000 * t)
+        + 0.15 * np.sin(2 * np.pi * 9500 * t)
+    )
+    out["chirp"] = 0.6 * np.sin(2 * np.pi * (50 * t + (8000 - 50) * t * t / (2 * seconds)))
+    noise = rng.standard_normal(n)
+    out["white_noise"] = 0.3 * noise
+    transient = 0.5 * np.sin(2 * np.pi * 500 * t)
+    for pos in range(4410, n, 11025):
+        transient[pos:pos + 300] += 0.4 * np.hanning(min(300, n - pos))
+    out["transients"] = transient
+    lp = np.convolve(noise, np.ones(32) / 32, mode="same")
+    out["pink_ish"] = 0.5 * lp / np.abs(lp).max()
+    return {k: np.clip(v, -1, 1).astype(np.float32) for k, v in out.items()}
+
+
+def psnr(ref: np.ndarray, out: np.ndarray, delay: int = 266) -> float:
+    """Round-trip PSNR against full scale, in dB, after the codec's delay."""
+    n = len(ref) - delay
+    err = out[delay:delay + n].astype(np.float64) - ref[:n].astype(np.float64)
+    return float(10 * np.log10(1.0 / max(np.mean(err**2), 1e-30)))
+
+
+def synth_audio(nframes: int, channels: int = 2) -> np.ndarray:
+    """Deterministic music-like signal, f32 [channels, nframes * 512]: tones,
+    noise and periodic transients that exercise the short-block path
+    (`bench.py` `synth_audio`)."""
+    n = nframes * 512
+    t = np.arange(n, dtype=np.float64) / 44100.0
+    rng = np.random.default_rng(42)
+    out = np.zeros((channels, n), np.float32)
+    for ch in range(channels):
+        sig = (
+            0.35 * np.sin(2 * np.pi * (220 + 110 * ch) * t)
+            + 0.2 * np.sin(2 * np.pi * (3000 + 500 * ch) * t + 0.1 * np.sin(2 * np.pi * 3 * t))
+            + 0.1 * rng.standard_normal(n)
+        )
+        for pos in range(2048, n, 44100 // 3):
+            sig[pos:pos + 256] += 0.3
+        out[ch] = np.clip(sig, -1, 1).astype(np.float32)
+    return out

@@ -1,27 +1,39 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port builds and decodes on one GPU.
+"""Quickest proof that the PyTorch/CUDA port builds, encodes and decodes on one GPU.
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit:  python3 chip_smoke.py [--record PATH]
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
-  2. build: compiles every kernel of the decode path (K1 IMDCT at sizes
-     64/256/512, K2 QMF taps, K3 field read) from carta1_tpu_torch/csrc;
+  2. build: compiles every kernel (K1 IMDCT at sizes 64/256/512, K2 QMF
+     taps, K3 field read, K4 allocation sweep) from carta1_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes one stereo 8192-frame chunk gives it, and K1 and K2 on edge
-     inputs too (batches around a block's tile, small widths, +0, -0,
-     denormals, overflow to inf, lone samples at a row's ends): 0 differing
-     words allowed; kernel, plain and library-call times, the kernel's
-     bound, and the time of an empty launch through the same route;
+     shapes the first stereo 8192-frame chunk of the transcode gives it,
+     and on edge inputs (batches around a block's tile, small widths, +0,
+     -0, denormals, overflow to inf, lone samples at a row's ends; for K4
+     invalid candidates, every BFU abandoned, a budget met exactly, zero
+     costs): 0 differing words allowed; kernel, plain and library-call
+     times, the kernel's bound, and the time of an empty launch;
   4. the golden fixture decoded to int16 on the card equals
      tests/fixtures/golden_decode.npz exactly;
-  5. the main path: a stereo stream of 4 x 8192 frames per channel through
-     decode_units on the card, launch counters reset just before and read
-     just after; its int16 output must equal the same call with the plain
-     versions, and every kernel must have launched;
-  6. 64 units of random bytes decode to finite PCM equal to the plain path;
-  7. a torch.profiler pass over one stereo chunk: device time by operation.
+  5. the encoder on the card against tests/fixtures/torch_encode_expect.npz
+     (the gold engine on six signal classes): block modes and scale
+     factors equal gold's with the reference allocator, round-trip PSNR at
+     least gold's with the default one, the bit budget on every frame, the
+     share of fields equal to the CPU run, and what an f32 log2 would make
+     of amplitudes around every scale-factor table value;
+  6. the main path: a stereo int16 stream of 4 x 8192 frames per channel,
+     chunk by chunk through encode -> 212-byte units on the card -> decode
+     -> int16, both stream states carried; launch counters reset just
+     before and read just after; units and int16 must equal the same run
+     with the plain versions and a second run, every kernel must have
+     launched; then encode_pcm -> decode_units on a prefix, and the times
+     of the transcode, of encode alone and of decode alone;
+  7. the decode stream of golden units (2 x 8192 stereo frames through
+     decode_units) against the plain path, and 64 units of random bytes;
+  8. torch.profiler over one chunk's encode and one chunk's decode: device
+     time by operation, launches, the hand kernels' device time.
 
 The last lines are a JSON `kernels` line, the card's name and power limit,
 and the result line.  The full record (every timing, the profile) goes to
@@ -43,6 +55,7 @@ import torch
 
 CHUNK = 8192
 CHUNKS = 4
+DECODE_CHUNKS = 2          # the decode-only stream of golden units
 # NVIDIA H100 SXM data sheet peaks (dense, 700 W): HBM3 bytes/s, and FP64
 # outside the tensor cores.  The sheet's 34 TFLOP/s counts an FMA as two
 # operations; the exact kernels may not fuse a multiply with an add, so the
@@ -83,9 +96,9 @@ def _spectra(rng: np.random.Generator, rows: int, cols: int, dev) -> torch.Tenso
 
 
 def _stereo_stream(units: np.ndarray) -> np.ndarray:
-    """4 x 8192 frames per channel, tiled from the golden units with
+    """2 x 8192 frames per channel, tiled from the golden units with
     different offsets for L and R (both keep the fixture's short frames)."""
-    n = CHUNK * CHUNKS
+    n = CHUNK * DECODE_CHUNKS
     reps = -(-(n + 41) // units.shape[0])
     tiled = np.tile(units, (reps, 1))
     left, right = tiled[:n], tiled[41:41 + n]
@@ -103,10 +116,15 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs the GPU", file=sys.stderr)
         return 2
 
-    from carta1_tpu_torch import decode_units, kernels, testing
+    from carta1_tpu_torch import EncoderOptions, decode_units, encode_frames, encode_pcm, kernels, testing
+    from carta1_tpu_torch import constants as C
     from carta1_tpu_torch.constants import QMF_EVEN, QMF_ODD
     from carta1_tpu_torch.io.aea import read_aea
-    from carta1_tpu_torch.ops import bitpack, bitpack_kernels, imdct_kernels, qmf_kernels
+    from carta1_tpu_torch.ops import bitalloc, bitalloc_kernels, bitpack, bitpack_kernels, imdct_kernels, qmf_kernels
+    from carta1_tpu_torch.ops.pcm import float_to_int16, int16_to_float
+    from carta1_tpu_torch.pipeline.encoder import analysis_step, encoder_init_state
+    from carta1_tpu_torch.processor import _decode_batch_dev, _encode_batch_dev, pcm_to_frames
+    from carta1_tpu_torch.tables import RDO_BUDGET
 
     dev = torch.device("cuda")
     record: dict = {}
@@ -127,19 +145,28 @@ def main() -> int:
                 print(f"  {lib}: {line.strip()}")
     record["build_s"] = build_s
 
-    # main-path inputs: the first chunk of the stereo stream
     fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
     _, golden_units = read_aea(os.path.join(fixtures, "golden.aea"))
     stream = _stereo_stream(golden_units)
-    chunk = torch.from_numpy(
-        np.ascontiguousarray(np.stack([stream[0::2][:CHUNK], stream[1::2][:CHUNK]]))
-    ).to(dev)                                                            # [2, 8192, 212]
+    options = EncoderOptions()
+
+    # main-path input: 4 x 8192 stereo frames of tones, noise and periodic
+    # transients, as the int16 samples a WAV file would hold
+    source = testing.synth_audio(CHUNK * CHUNKS, 2)                      # f32 [2, N]
+    pcm16 = float_to_int16(torch.from_numpy(source)).numpy().reshape(2, CHUNK * CHUNKS, 512)
+
+    def upload(k: int) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(pcm16[:, k * CHUNK:(k + 1) * CHUNK])).to(dev)
+
+    # the first chunk gives the kernels their main-path shapes
+    chunk, _ = _encode_batch_dev(upload(0), options, None)               # uint8 [2, 8192, 212]
     modes = bitpack.unpack_frames(chunk.reshape(-1, 212)).block_modes != 0
     n_short = modes.sum(dim=0).tolist()
     n64 = 4 * n_short[0] + 4 * n_short[1] + 8 * n_short[2]
     if n64 == 0:
-        raise AssertionError("the smoke stream has no short-mode frames")
+        raise AssertionError("the encoder chose no short-mode frame in the smoke stream's first chunk")
     frames = 2 * CHUNK
+    print(f"first transcode chunk: short frames per band {n_short} of {frames}")
 
     # 3. kernels against their plain versions, at main-path shapes
     rng = np.random.default_rng(2024)
@@ -214,6 +241,22 @@ def main() -> int:
           read_bytes, 0, reps=50,
           library=lambda: [torch.gather(win64, 1, h) for h in anchors])
 
+    # K4 on the candidates both allocators make of that chunk
+    bfu, sf, _, _ = analysis_step(int16_to_float(upload(0)), encoder_init_state(dev, 2), options.band_thresholds)
+    bfu, sf = bfu.reshape(-1, C.NUM_BFUS, C.MAX_BFU_SIZE), sf.reshape(-1, C.NUM_BFUS)
+    cands_rdo = bitalloc.rdo_candidates(bfu, sf, options.allocation_bias).contiguous()
+    cands_ref = bitalloc.reference_candidates(sf, options.allocation_bias).contiguous()
+    del bfu
+    print("alloc_sweep: library_ms null -- no PyTorch call computes a budgeted sequential sweep")
+    check("alloc_sweep", [(cands_rdo,)], bitalloc_kernels.alloc_sweep_plain, bitalloc_kernels.alloc_sweep,
+          cands_rdo.numel() * 4 + frames * C.NUM_BFUS * 4, 0, reps=50,
+          edge_cases=[(cands_ref,)] + [(torch.from_numpy(c).to(dev),)
+                                       for _, c in testing.sweep_edge_cases(bitalloc_kernels.BLOCK_FRAMES)])
+    used = (bitalloc_kernels.alloc_sweep(cands_rdo) > 0).float().mean().item()
+    print(f"alloc_sweep: main-path candidates [{cands_rdo.shape[0]}, {cands_rdo.shape[1]}], "
+          f"{(cands_rdo & 1).float().mean().item():.3f} valid, {used:.3f} of BFUs given bits")
+    del cands_rdo, cands_ref
+
     # 4. golden fixture, int16-exact on the card
     golden = np.load(os.path.join(fixtures, "golden_decode.npz"))["int16"]
     got = decode_units(golden_units, 1, to_i16=True).cpu().numpy().reshape(-1)
@@ -221,42 +264,176 @@ def main() -> int:
         raise AssertionError(f"golden int16 differs in {(got != golden).sum()} samples")
     print(f"golden fixture: {golden.size} int16 samples equal")
 
-    # 5. the main path: 4 x 8192-frame stereo stream, state carried across chunks
-    decode_units(stream[: 2 * 256], 2, to_i16=True)                   # warm the tables
+    # 5. the encoder on the card against the gold engine's fixture
+    expect = np.load(os.path.join(fixtures, "torch_encode_expect.npz"))
+    bits_of = torch.from_numpy(C.WORD_LENGTH_BITS.astype(np.int64)).to(dev)
+    specs = torch.from_numpy(C.SPECS_PER_BFU.astype(np.int64)).to(dev)
+    enc_rows = {}
+    for cls, sig in testing.signals(float(expect["seconds"])).items():
+        fr = pcm_to_frames(sig)
+        ref_card, _ = encode_frames(fr, EncoderOptions(allocator="reference"))
+        bfu, _, _, _ = analysis_step(torch.from_numpy(fr).to(dev), encoder_init_state(dev), options.band_thresholds)
+        peaks = torch.where(torch.from_numpy(C.BFU_SLOT_MASK).to(dev), bfu.abs(), 0.0).amax(dim=-1).cpu().numpy()
+        ref_cpu, _ = encode_frames(fr, EncoderOptions(allocator="reference"), device="cpu")
+        gold_modes = expect[f"{cls}/block_modes"].astype(np.int32)
+        gold_sf = expect[f"{cls}/scale_factors"].astype(np.int32)
+        mode_flips = {
+            "card_vs_gold": int((ref_card.block_modes.cpu().numpy() != gold_modes).any(axis=1).sum()),
+            "cpu_vs_gold": int((ref_cpu.block_modes.numpy() != gold_modes).any(axis=1).sum()),
+            "card_vs_cpu": int((ref_card.block_modes.cpu() != ref_cpu.block_modes).any(dim=1).sum()),
+        }
+        sf_card = ref_card.scale_factors.cpu().numpy()
+        sf_diff = {"card_vs_gold": int((sf_card != gold_sf).sum()),
+                   "card_vs_jax_cpu": int((sf_card != expect[f"{cls}/scale_factors_jax_cpu"]).sum()),
+                   "card_vs_cpu": int((sf_card != ref_cpu.scale_factors.numpy()).sum()),
+                   "jax_cpu_vs_gold": int((expect[f"{cls}/scale_factors_jax_cpu"] != gold_sf).sum()),
+                   "of": int(gold_sf.size)}
+        sf_faults = testing.scale_factor_faults(sf_card, gold_sf, peaks)
+        if mode_flips["card_vs_gold"] or sf_faults:
+            raise AssertionError(f"encode {cls}: {mode_flips} frames with other block modes; {sf_faults} scale factors "
+                                 f"differ from the gold engine's beyond a peak's rounding across a table value ({sf_diff})")
+        fd_card, _ = encode_frames(fr)
+        fd_cpu, _ = encode_frames(fr, device="cpu")
+        used_bits = (bits_of[fd_card.word_lengths.long()] * specs).sum(dim=-1)
+        if int(used_bits.max()) + 40 + 10 * C.NUM_BFUS > C.FRAME_BITS:
+            raise AssertionError(f"encode {cls}: a frame spends {int(used_bits.max())} bits, over the budget")
+        out = decode_units(bitpack.pack_frames(fd_card).cpu().numpy(), 1).cpu().numpy().reshape(-1)
+        p_card, p_gold = testing.psnr(sig, out), float(expect[f"{cls}/psnr_gold"])
+        if not p_card >= p_gold:
+            raise AssertionError(f"encode {cls}: round-trip PSNR {p_card:.3f} dB below the gold encoder's {p_gold:.3f}")
+        same = {k: float((getattr(fd_card, k).cpu() == getattr(fd_cpu, k)).float().mean()) for k in fd_card.fields()}
+        same_ref = {k: float((getattr(ref_card, k).cpu() == getattr(ref_cpu, k)).float().mean()) for k in ref_card.fields()}
+        enc_rows[cls] = {"psnr_card_db": p_card, "psnr_gold_db": p_gold,
+                         "psnr_jax_cpu_db": float(expect[f"{cls}/psnr_jax_cpu"]),
+                         "mode_flips": mode_flips, "scale_factor_diffs": sf_diff, "max_bits": int(used_bits.max()),
+                         "fields_equal_card_cpu": same, "fields_equal_card_cpu_reference_allocator": same_ref}
+        print(f"encode {cls}: modes equal gold's, scale factors differ in {sf_diff} (each one off, peak on a table "
+              f"value); PSNR {p_card:.3f} dB >= gold {p_gold:.3f} "
+              f"(JAX on CPU {enc_rows[cls]['psnr_jax_cpu_db']:.3f}); most bits in a frame {int(used_bits.max())} of {RDO_BUDGET}; "
+              f"mode flips {mode_flips}; equal to the CPU run: word_lengths {same['word_lengths']:.4f} "
+              f"quantized {same['quantized']:.6f} scale_factors {same['scale_factors']:.4f}")
+    record["encode_checks"] = enc_rows
+
+    # what ceil(3 * (log2(a) + 21)) in f32 makes of amplitudes around every table
+    # value, on the card and on the CPU, against the table comparison the port uses
+    amps = torch.from_numpy(testing.scale_factor_edge_amplitudes())
+
+    def by_log2(a: torch.Tensor) -> torch.Tensor:
+        return torch.ceil(3.0 * (torch.log2(a.clamp(min=1e-38)) + 21.0)).clamp(0, 63).to(torch.int32)
+
+    sf64 = torch.from_numpy(C.SCALE_FACTORS)
+    by_table = torch.bucketize(amps.double(), sf64).clamp(max=63).to(torch.int32)
+    log2_flips = {"card": int((by_log2(amps.to(dev)).cpu() != by_table).sum()),
+                  "cpu": int((by_log2(amps) != by_table).sum()), "of": amps.numel()}
+    print(f"scale factors: f32 log2 formula differs from the f64 table comparison on {log2_flips['card']} (card) / "
+          f"{log2_flips['cpu']} (CPU) of {log2_flips['of']} amplitudes within 4 ulps of a table value")
+    record["log2_flips"] = log2_flips
+
+    # 6. the main path: the stereo transcode, chunk by chunk, both states carried
+    def transcode(plain: bool = False, chunks: int = CHUNKS):
+        est = dst = None
+        units_out, pcm_out = [], []
+        for k in range(chunks):
+            units, est = _encode_batch_dev(upload(k), options, est, plain=plain)
+            pcm, dst = _decode_batch_dev(units, dst, to_i16=True, plain=plain)
+            units_out.append(units)
+            pcm_out.append(pcm)
+        return torch.cat(units_out, dim=1), torch.cat(pcm_out, dim=1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    transcode(chunks=1)                                               # warm the tables
     torch.cuda.synchronize()
     kernels.reset_launches()
-    t0 = time.perf_counter()
-    pcm = decode_units(stream, 2, to_i16=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall, (units, pcm) = timed(transcode)
     launches = dict(kernels.LAUNCHES)
-    t0 = time.perf_counter()
-    plain = decode_units(stream, 2, to_i16=True, plain=True)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    m, _ = _mismatch(pcm, plain)
-    if m or pcm.shape != (2, CHUNK * CHUNKS * 512):
-        raise AssertionError(f"main path: {m} int16 samples differ from the plain path, shape {tuple(pcm.shape)}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}: {launches}")
-    repeats = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        decode_units(stream, 2, to_i16=True)
-        torch.cuda.synchronize()
-        repeats.append(time.perf_counter() - t0)
-    fps = 2 * CHUNK * CHUNKS / wall
-    print(f"main path: {CHUNKS} x {CHUNK} stereo frames in {wall:.4f} s = {fps:.1f} channel-frames/s "
-          f"on {name} (repeats {', '.join(f'{r:.4f}' for r in repeats)} s; plain versions {plain_wall:.4f} s); "
-          f"int16 equal to the plain path; launches {launches}")
-    record["main_path"] = {"seconds": wall, "repeat_seconds": repeats, "plain_seconds": plain_wall,
-                           "channel_frames_per_s": fps, "launches": launches,
-                           "short_frames_first_chunk": n_short}
+    if units.shape != (2, CHUNK * CHUNKS, 212) or pcm.shape != (2, CHUNK * CHUNKS, 512) or pcm.dtype != torch.int16:
+        raise AssertionError(f"main path: units {tuple(units.shape)}, pcm {tuple(pcm.shape)} {pcm.dtype}")
+    again_wall, (units2, pcm2) = timed(transcode)
+    if _mismatch(units, units2)[0] or _mismatch(pcm, pcm2)[0]:
+        raise AssertionError("main path: a second run on the same input gave other units or samples")
+    plain_wall, (units_p, pcm_p) = timed(lambda: transcode(plain=True))
+    mu, mp = _mismatch(units, units_p)[0], _mismatch(pcm, pcm_p)[0]
+    if mu or mp:
+        raise AssertionError(f"main path: {mu} unit bytes and {mp} int16 samples differ from the plain path")
+    del units2, pcm2, units_p, pcm_p
+    short_total = (bitpack.unpack_frames(units.reshape(-1, 212)).block_modes != 0).sum(dim=0).tolist()
+    if sum(short_total) == 0:
+        raise AssertionError("main path: the encoder chose no short-mode frame")
+
+    # the same stream through the public entry points, on a prefix of whole chunks
+    flat16 = pcm16.reshape(2, -1)
+    pre = 2 * CHUNK
+    pub_units = encode_pcm(flat16[:, : pre * 512])
+    pub_pcm = decode_units(pub_units, 2, to_i16=True)
+    want_units = units[:, :pre].cpu().numpy()
+    if not (np.array_equal(pub_units[0::2], want_units[0]) and np.array_equal(pub_units[1::2], want_units[1])):
+        raise AssertionError("encode_pcm: units differ from the chunked run's prefix")
+    if _mismatch(pub_pcm, pcm[:, :pre].reshape(2, -1))[0]:
+        raise AssertionError("decode_units(encode_pcm(...)): samples differ from the chunked run's prefix")
+    ragged = encode_pcm(source[:, : 700 * 512 + 77], chunk_frames=300)     # f32 input, a ragged tail
+    if ragged.shape != (2 * 701, 212):
+        raise AssertionError(f"encode_pcm on a ragged stream: units {ragged.shape}")
+
+    got = pcm.reshape(2, -1).cpu().numpy().astype(np.float32) / 32768.0
+    stream_psnr = [testing.psnr(source[ch], got[ch]) for ch in range(2)]
+
+    def encode_only():
+        est, out = None, None
+        for k in range(CHUNKS):
+            out, est = _encode_batch_dev(upload(k), options, est)
+        return out
+
+    def decode_only():
+        dst, out = None, None
+        for k in range(CHUNKS):
+            out, dst = _decode_batch_dev(units[:, k * CHUNK:(k + 1) * CHUNK], dst, to_i16=True)
+        return out
+
+    upload_s = sorted(timed(lambda: upload(1))[0] for _ in range(3))[1]
+    repeats = [timed(transcode)[0] for _ in range(3)]
+    enc_repeats = [timed(encode_only)[0] for _ in range(3)]
+    dec_repeats = [timed(decode_only)[0] for _ in range(3)]
+    cf = 2 * CHUNK * CHUNKS
+    fps = cf / wall
+    print(f"main path: transcode of {CHUNKS} x {CHUNK} stereo frames (int16 -> units -> int16) in {wall:.4f} s = "
+          f"{fps:.1f} channel-frames/s on {name} (second run {again_wall:.4f} s, repeats "
+          f"{', '.join(f'{r:.4f}' for r in repeats)} s; plain versions {plain_wall:.4f} s); units and int16 equal "
+          f"to the plain path and to a second run; launches {launches}")
+    print(f"main path: encode alone {', '.join(f'{r:.4f}' for r in enc_repeats)} s = {cf / sorted(enc_repeats)[1]:.1f} "
+          f"channel-frames/s; decode alone {', '.join(f'{r:.4f}' for r in dec_repeats)} s = "
+          f"{cf / sorted(dec_repeats)[1]:.1f} channel-frames/s (median repeats); short frames per band {short_total}; "
+          f"round-trip PSNR {stream_psnr[0]:.3f} / {stream_psnr[1]:.3f} dB (L / R); "
+          f"upload of one chunk's int16 samples (pageable, {pcm16[:, :CHUNK].nbytes / 1e6:.1f} MB) {upload_s * 1e3:.3f} ms; "
+          f"encode_pcm -> decode_units on {pre} frames equal to the chunked run")
+    record["main_path"] = {"seconds": wall, "second_run_seconds": again_wall, "repeat_seconds": repeats,
+                           "encode_repeat_seconds": enc_repeats, "decode_repeat_seconds": dec_repeats,
+                           "plain_seconds": plain_wall, "channel_frames_per_s": fps, "launches": launches,
+                           "short_frames_first_chunk": n_short, "short_frames": short_total,
+                           "psnr_db": stream_psnr, "upload_one_chunk_seconds": upload_s}
     for row in rows:
         row["launches"] = launches[row["name"]]
 
-    # 6. malformed units: random bytes
+    # 7. the decode stream of golden units through decode_units, and malformed units
+    decode_units(stream[: 2 * 256], 2, to_i16=True)
+    dwall, dpcm = timed(lambda: decode_units(stream, 2, to_i16=True))
+    m, _ = _mismatch(dpcm, decode_units(stream, 2, to_i16=True, plain=True))
+    if m or dpcm.shape != (2, CHUNK * DECODE_CHUNKS * 512):
+        raise AssertionError(f"decode stream: {m} int16 samples differ from the plain path, shape {tuple(dpcm.shape)}")
+    drepeats = [timed(lambda: decode_units(stream, 2, to_i16=True))[0] for _ in range(3)]
+    print(f"decode stream: {DECODE_CHUNKS} x {CHUNK} stereo frames of golden units through decode_units in {dwall:.4f} s "
+          f"(repeats {', '.join(f'{r:.4f}' for r in drepeats)} s); int16 equal to the plain path")
+    record["decode_stream"] = {"seconds": dwall, "repeat_seconds": drepeats}
+    del dpcm
+
     bad = np.random.default_rng(7).integers(0, 256, (64, 212)).astype(np.uint8)
     out_k = decode_units(bad, 1)
     out_p = decode_units(bad, 1, plain=True)
@@ -266,35 +443,52 @@ def main() -> int:
         raise AssertionError(f"random units: {m} words differ from the plain path or output not finite")
     print("random units: finite and equal to the plain path")
 
-    # 7. where one chunk's time goes: device time by operation (torch.profiler)
-    one_chunk = stream[: 2 * CHUNK]
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        decode_units(one_chunk, 2, to_i16=True)
-        torch.cuda.synchronize()
+    # 8. where one chunk's time goes: device time by operation (torch.profiler),
+    # the encode and the decode of the stream's first chunk apart
     cuda = torch.autograd.DeviceType.CUDA
-    events = prof.key_averages()
-    # device-side rows (kernels, copies) count each device interval once;
-    # host-side rows attribute that time to the operation that launched it
-    device_ms = sum(e.self_device_time_total for e in events if e.device_type == cuda) / 1e3
-    device_launches = sum(e.count for e in events if e.device_type == cuda)
-    ops = sorted(((e.key, e.count, e.self_device_time_total / 1e3) for e in events
-                  if e.device_type != cuda and e.self_device_time_total > 0), key=lambda o: -o[2])
-    chunk_ms = sorted(repeats)[1] / CHUNKS * 1e3                       # median repeat
-    print(f"profile of one stereo chunk: device busy {device_ms:.3f} ms of {chunk_ms:.3f} ms host wall "
-          f"(unprofiled) = idle share {1 - device_ms / chunk_ms:.3f}; {device_launches} device launches; top: "
-          + "; ".join(f"{k[:40]} x{c} {ms:.3f} ms" for k, c, ms in ops[:6]))
-    hand = [(e.key, e.count, e.self_device_time_total / 1e3) for e in events
-            if e.device_type == cuda and any(w in e.key for w in ("imdct", "qmf_taps", "read_fields"))]
-    print("hand kernels in that chunk (device ms, all launches): "
-          + "; ".join(f"{k.replace('(anonymous namespace)::', '').split('(')[0]} x{c} {ms:.4f}" for k, c, ms in hand))
-    record["profile_one_chunk"] = {
-        "device_ms": device_ms, "host_wall_ms_unprofiled": chunk_ms, "device_launches": device_launches,
-        "hand_kernels": [{"name": k, "count": c, "device_ms": ms} for k, c, ms in hand],
-        "ops": [{"name": k, "count": c, "self_device_ms": ms} for k, c, ms in ops[:30]],
-        "device_rows": sorted(([e.key, e.count, e.self_device_time_total / 1e3] for e in events
-                               if e.device_type == cuda), key=lambda r: -r[2])[:30],
-    }
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    hand_names = ("imdct", "qmf_taps", "read_fields", "alloc_sweep")
+
+    def profile(fn) -> dict:
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # device-side rows (kernels, copies) count each device interval once;
+        # host-side rows attribute that time to the operation that launched it
+        dev_rows = sorted(([e.key, e.count, e.self_device_time_total / 1e3] for e in events
+                           if e.device_type == cuda), key=lambda r: -r[2])
+        ops = sorted(([e.key, e.count, e.self_device_time_total / 1e3] for e in events
+                      if e.device_type != cuda and e.self_device_time_total > 0), key=lambda o: -o[2])
+        host = sorted(([e.key, e.count, e.self_cpu_time_total / 1e3] for e in events if e.device_type != cuda),
+                      key=lambda o: -o[2])
+        return {"device_ms": sum(r[2] for r in dev_rows), "device_launches": sum(r[1] for r in dev_rows),
+                "host_ops_profiled": [{"name": k, "count": c, "self_cpu_ms": ms} for k, c, ms in host[:25]],
+                "hand_kernels": [{"name": k.replace("(anonymous namespace)::", "").split("(")[0], "count": c,
+                                  "device_ms": ms} for k, c, ms in dev_rows if any(w in k for w in hand_names)],
+                "ops": [{"name": k, "count": c, "self_device_ms": ms} for k, c, ms in ops[:30]],
+                "device_rows": dev_rows[:30]}
+
+    prof_enc = profile(lambda: _encode_batch_dev(upload(0), options, None))
+    prof_dec = profile(lambda: _decode_batch_dev(chunk, None, to_i16=True))
+    walls = {"transcode": sorted(repeats)[1], "encode": sorted(enc_repeats)[1], "decode": sorted(dec_repeats)[1]}
+    for part, prof in (("encode", prof_enc), ("decode", prof_dec)):
+        chunk_ms = walls[part] / CHUNKS * 1e3                          # median repeat
+        prof["host_wall_ms_unprofiled"] = chunk_ms
+        print(f"profile of one stereo chunk, {part}: device busy {prof['device_ms']:.3f} ms of {chunk_ms:.3f} ms host wall "
+              f"(unprofiled) = idle share {1 - prof['device_ms'] / chunk_ms:.3f}; {prof['device_launches']} device launches; "
+              "top: " + "; ".join(f"{o['name'][:40]} x{o['count']} {o['self_device_ms']:.3f} ms" for o in prof["ops"][:8]))
+        print(f"host time of that {part} under the profiler (self CPU ms, inflated by it): "
+              + "; ".join(f"{o['name'][:32]} x{o['count']} {o['self_cpu_ms']:.2f}" for o in prof["host_ops_profiled"][:10]))
+        print(f"hand kernels in that {part} (device ms, all launches): "
+              + "; ".join(f"{h['name']} x{h['count']} {h['device_ms']:.4f}" for h in prof["hand_kernels"]))
+    busy = prof_enc["device_ms"] + prof_dec["device_ms"]
+    chunk_ms = walls["transcode"] / CHUNKS * 1e3
+    print(f"profile of one stereo chunk, transcode: device busy {busy:.3f} ms of {chunk_ms:.3f} ms host wall "
+          f"(unprofiled) = idle share {1 - busy / chunk_ms:.3f}; "
+          f"{prof_enc['device_launches'] + prof_dec['device_launches']} device launches")
+    record["profile_one_chunk"] = {"encode": prof_enc, "decode": prof_dec, "device_ms": busy,
+                                   "host_wall_ms_unprofiled": chunk_ms}
 
     record["kernels"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

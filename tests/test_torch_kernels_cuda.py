@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from carta1_tpu_torch import decode_units, kernels, testing
+from carta1_tpu_torch import EncoderOptions, decode_units, encode_frames, encode_pcm, kernels, testing
 from carta1_tpu_torch.io.aea import read_aea
-from carta1_tpu_torch.ops import bitpack, bitpack_kernels, imdct_kernels, qmf_kernels
+from carta1_tpu_torch.ops import bitalloc, bitalloc_kernels, bitpack, bitpack_kernels, imdct_kernels, qmf_kernels
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -108,9 +108,52 @@ def test_decode_units_kernels_match_plain_and_golden(card):
     )
 
 
+@pytest.mark.cuda
+def test_alloc_sweep_kernel_edge_inputs_match_plain(card):
+    """Batches around a block's frames, invalid candidates, every BFU
+    abandoned, a budget met exactly, zero costs, widths off the tile."""
+    for name, cands in testing.sweep_edge_cases(bitalloc_kernels.BLOCK_FRAMES):
+        c = torch.from_numpy(cands).to(card)
+        before = kernels.LAUNCHES["alloc_sweep"]
+        got = bitalloc_kernels.alloc_sweep(c)
+        assert kernels.LAUNCHES["alloc_sweep"] == before + 1
+        assert torch.equal(got, bitalloc_kernels.alloc_sweep_plain(c)), name
+        assert np.array_equal(got.cpu().numpy(), testing.sweep_reference(cands, bitalloc_kernels.RDO_BUDGET)), name
+
+
+@pytest.mark.cuda
+def test_alloc_sweep_kernel_on_both_allocators_candidates(card):
+    rng = np.random.default_rng(6)
+    sf = torch.from_numpy(rng.integers(0, 64, (300, 52)).astype(np.int32)).to(card)
+    bfu = torch.from_numpy((rng.standard_normal((300, 52, 20)) * 0.3).astype(np.float32)).to(card)
+    for cands in (bitalloc.reference_candidates(sf, 1.0), bitalloc.rdo_candidates(bfu, sf, 2.0)):
+        cands = cands.contiguous()
+        assert torch.equal(bitalloc_kernels.alloc_sweep(cands), bitalloc_kernels.alloc_sweep_plain(cands))
+    assert torch.equal(bitalloc.allocate_bits(sf, 0.7), bitalloc.allocate_bits(sf, 0.7, plain=True))
+
+
+@pytest.mark.cuda
+def test_encode_on_the_card_matches_plain_and_decodes(card):
+    """Units through the kernels equal units through the plain versions,
+    twice; the round trip through the card's exact decoder is sane."""
+    pcm = testing.synth_audio(600, 2)
+    units = encode_pcm(pcm, device=card, chunk_frames=256)
+    assert units.shape == (1200, 212)
+    assert np.array_equal(units, encode_pcm(pcm, device=card, chunk_frames=256))
+    assert np.array_equal(units, encode_pcm(pcm, device=card, chunk_frames=256, plain=True))
+    out = decode_units(units, 2, device=card).cpu().numpy()
+    assert testing.psnr(pcm[0], out[0]) > 20 and testing.psnr(pcm[1], out[1]) > 20
+    fd, _ = encode_frames(pcm[0].reshape(-1, 512)[:64], EncoderOptions(allocator="reference"), device=card)
+    fd_cpu, _ = encode_frames(pcm[0].reshape(-1, 512)[:64], EncoderOptions(allocator="reference"), device="cpu")
+    assert torch.equal(fd.block_modes.cpu(), fd_cpu.block_modes)
+
+
 @pytest.mark.parametrize(
     "call",
     [
+        lambda: bitalloc_kernels.alloc_sweep(torch.zeros(4, 780, dtype=torch.int64)),
+        lambda: bitalloc_kernels.alloc_sweep(torch.zeros(780, dtype=torch.int32)),
+        lambda: bitalloc_kernels.alloc_sweep(torch.zeros(780, 4, dtype=torch.int32).T),
         lambda: imdct_kernels.imdct_mid(torch.zeros(4, 32, dtype=torch.float64), 64),
         lambda: imdct_kernels.imdct_mid(torch.zeros(4, 33), 64),
         lambda: imdct_kernels.imdct_mid(torch.zeros(4, 64), 128),
