@@ -19,10 +19,10 @@ from carta1_tpu_torch.framedata import FrameData  # noqa: E402
 from carta1_tpu_torch.options import EncoderOptions  # noqa: E402
 from carta1_tpu_torch.pipeline.decoder import decode_frames, decode_step, decoder_init_state  # noqa: E402
 from carta1_tpu_torch.pipeline.encoder import encode_frames, encode_step, encoder_init_state  # noqa: E402
-from carta1_tpu_torch.processor import decode_units, encode_pcm  # noqa: E402
+from carta1_tpu_torch.processor import decode_file, decode_units, encode_clips, encode_file, encode_pcm  # noqa: E402
 
 __all__ = [
     "EncoderOptions", "FrameData",
-    "decode_frames", "decode_step", "decoder_init_state", "decode_units",
-    "encode_frames", "encode_step", "encoder_init_state", "encode_pcm",
+    "decode_file", "decode_frames", "decode_step", "decoder_init_state", "decode_units",
+    "encode_clips", "encode_file", "encode_frames", "encode_step", "encoder_init_state", "encode_pcm",
 ]

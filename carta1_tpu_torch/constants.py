@@ -21,6 +21,7 @@ import numpy as np
 # ---------------------------------------------------------------------------
 SAMPLE_RATE = 44100
 SAMPLES_PER_FRAME = 512
+FRAME_RATE = SAMPLE_RATE / SAMPLES_PER_FRAME
 
 AEA_MAGIC = bytes([0x00, 0x08, 0x00, 0x00])
 AEA_HEADER_SIZE = 2048
@@ -32,6 +33,7 @@ AEA_CHANNEL_COUNT_OFFSET = 264
 SOUND_UNIT_SIZE = 212
 FRAME_BITS = SOUND_UNIT_SIZE * 8           # 1696
 FRAME_OVERHEAD_BITS = 40
+BITRATE_PER_CHANNEL = SOUND_UNIT_SIZE * FRAME_RATE * 8
 
 # ---------------------------------------------------------------------------
 # BFU (Block Floating Unit) layout

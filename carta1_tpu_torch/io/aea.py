@@ -1,4 +1,4 @@
-"""AEA container read and stereo (de)interleave (parity: codec/io/serialization.js:182-254,
+"""AEA container read, write and stereo (de)interleave (parity: codec/io/serialization.js:182-254,
 codec/io/readers.js).
 
 Layout: 2048-byte header -- magic 00 08 00 00, NUL-terminated ASCII title at
@@ -32,6 +32,16 @@ class AeaMetadata:
     channel_count: int
 
 
+def make_header(title: str = "", frame_count: int = 0, channel_count: int = 1) -> bytes:
+    header = bytearray(AEA_HEADER_SIZE)
+    header[:4] = AEA_MAGIC
+    title_bytes = title.encode("utf-8")[: AEA_TITLE_SIZE - 1]
+    header[AEA_TITLE_OFFSET:AEA_TITLE_OFFSET + len(title_bytes)] = title_bytes
+    header[AEA_FRAME_COUNT_OFFSET:AEA_FRAME_COUNT_OFFSET + 4] = int(frame_count).to_bytes(4, "little")
+    header[AEA_CHANNEL_COUNT_OFFSET] = channel_count
+    return bytes(header)
+
+
 def parse_header(header: bytes) -> AeaMetadata:
     if len(header) != AEA_HEADER_SIZE:
         raise ValueError(f"Header must be {AEA_HEADER_SIZE} bytes")
@@ -43,6 +53,14 @@ def parse_header(header: bytes) -> AeaMetadata:
     frame_count = int.from_bytes(header[AEA_FRAME_COUNT_OFFSET:AEA_FRAME_COUNT_OFFSET + 4], "little")
     channel_count = header[AEA_CHANNEL_COUNT_OFFSET]
     return AeaMetadata(title=title, frame_count=frame_count, channel_count=channel_count)
+
+
+def write_aea(path: str, units: np.ndarray, title: str = "", channel_count: int = 1) -> None:
+    """units: uint8 [total_frames, 212], already channel-interleaved."""
+    units = np.ascontiguousarray(units, dtype=np.uint8)
+    with open(path, "wb") as f:
+        f.write(make_header(title, units.shape[0], channel_count))
+        f.write(units.tobytes())
 
 
 def read_aea(path: str) -> tuple[AeaMetadata, np.ndarray]:

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from carta1_tpu_torch import constants as C
+from carta1_tpu_torch import profiling
 from carta1_tpu_torch.device import resolve_device
 from carta1_tpu_torch.framedata import FrameData
 from carta1_tpu_torch.ops.bitalloc import allocate_bits, allocate_bits_rdo
@@ -100,6 +101,7 @@ def encode_step(
     reduction of the quantization error; "reference" replicates the
     reference heap's proxy.  `plain=True` runs K4's plain PyTorch version."""
     bfu, sf, modes, new_state = analysis_step(pcm, state, thresholds)
+    profiling.nan_check("encoder analysis spectra", bfu)
 
     # allocation and quantization (encoder.js:374-405)
     lead = sf.shape[:-1]

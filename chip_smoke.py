@@ -33,7 +33,16 @@ Phases (each raises on failure; nothing is caught):
   7. the decode stream of golden units (2 x 8192 stereo frames through
      decode_units) against the plain path, and 64 units of random bytes;
   8. torch.profiler over one chunk's encode and one chunk's decode: device
-     time by operation, launches, the hand kernels' device time.
+     time by operation, launches, the hand kernels' device time;
+  9. the file layer: phase 6's stream as a WAV through encode_file and
+     decode_file (units and int16 equal to phase 6's; launch counters reset
+     just before and read just after, every kernel must have launched), a
+     killed and resumed encode and decode (byte-identical), the CLI's
+     --encode/--decode (byte-identical) and --json (equal to the CPU's dump),
+     encode_clips against encode_pcm per clip (at most 1% of bytes differ),
+     and the file walls (a first run and three repeats) and their split
+     beside phase 6's in-memory walls.
+     Its files go under build/ and are deleted at the end.
 
 The last lines are a JSON `kernels` line, the card's name and power limit,
 and the result line.  The full record (every timing, the profile) goes to
@@ -46,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -105,6 +115,140 @@ def _stereo_stream(units: np.ndarray) -> np.ndarray:
     out = np.empty((2 * n, units.shape[1]), np.uint8)
     out[0::2], out[1::2] = left, right
     return out
+
+
+class _KillAfter:
+    """Progress callback that raises on its n-th call (a killed run)."""
+
+    def __init__(self, n: int):
+        self.n, self.calls = n, 0
+
+    def __call__(self, done: int, total: int) -> None:
+        self.calls += 1
+        if self.calls >= self.n:
+            raise KeyboardInterrupt("simulated kill")
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def files_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, options, smi: str, walls: dict,
+                golden_aea: str) -> dict:
+    """Phase 9: phase 6's stream ([2, F, 512] int16; its units and int16
+    output on the card) through the file entry points, the CLI and
+    encode_clips on the card."""
+    from carta1_tpu_torch import cli, decode_file, encode_clips, encode_file, encode_pcm, kernels, testing
+    from carta1_tpu_torch.io.aea import read_aea
+    from carta1_tpu_torch.io.wav import write_wav
+
+    work = os.path.join("build", "chip_smoke_files")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = {k: os.path.join(work, k) for k in ("in.wav", "out.aea", "out.wav", "resumed.aea", "resumed.wav",
+                                               "cli.aea", "cli.wav", "card.json", "cpu.json", "ck.npz")}
+    nch, nframes = pcm16.shape[0], pcm16.shape[1]
+    write_wav(path["in.wav"], pcm16.reshape(nch, -1))
+    wav_size = os.path.getsize(path["in.wav"])
+
+    # 9a. encode_file and decode_file, against phase 6's units and int16
+    timings = {"encode": {}, "decode": {}}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    encode_file(path["in.wav"], path["out.aea"], options, title="smoke", chunk_frames=CHUNK, timings=timings["encode"])
+    enc_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode_file(path["out.aea"], path["out.wav"], chunk_frames=CHUNK, timings=timings["decode"])
+    dec_wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"files: encode_file -> decode_file launched no {missing}: {launches}")
+    meta, got_units = read_aea(path["out.aea"])
+    want = units.cpu().numpy()
+    if (meta.frame_count, meta.channel_count) != (nch * nframes, nch) or got_units.shape != (nch * nframes, 212):
+        raise AssertionError(f"files: AEA header {meta}, units {got_units.shape}")
+    if not (np.array_equal(got_units[0::2], want[0]) and np.array_equal(got_units[1::2], want[1])):
+        raise AssertionError("files: encode_file's units differ from phase 6's")
+    wav_bytes = _read(path["out.wav"])
+    samples = np.frombuffer(wav_bytes[44:], "<i2").reshape(-1, nch).T
+    if not np.array_equal(samples, pcm.cpu().numpy().reshape(nch, -1)):
+        raise AssertionError("files: decode_file's int16 samples differ from phase 6's")
+    aea_bytes = _read(path["out.aea"])
+
+    # 9b. killed after the second chunk, then resumed: byte-identical
+    for run, src, out, ref in ((encode_file, path["in.wav"], path["resumed.aea"], aea_bytes),
+                               (decode_file, path["out.aea"], path["resumed.wav"], wav_bytes)):
+        kw = dict(chunk_frames=CHUNK, checkpoint=path["ck.npz"], checkpoint_every=1)
+        if run is encode_file:
+            kw.update(options=options, title="smoke")
+        try:
+            run(src, out, on_progress=_KillAfter(2), **kw)
+        except KeyboardInterrupt:
+            pass
+        else:
+            raise AssertionError("files: the simulated kill did not happen")
+        if not os.path.exists(path["ck.npz"]):
+            raise AssertionError("files: no checkpoint after the kill")
+        run(src, out, **kw)
+        if os.path.exists(path["ck.npz"]) or _read(out) != ref:
+            raise AssertionError(f"files: resumed {run.__name__} is not byte-identical to the full run")
+
+    # 9c. the CLI on the card, and --json on the card against the CPU
+    for argv, out, ref in ((["--encode", path["in.wav"], path["cli.aea"], "--title", "smoke"], path["cli.aea"], aea_bytes),
+                           (["--decode", path["out.aea"], path["cli.wav"]], path["cli.wav"], wav_bytes)):
+        if cli.main(argv + ["--quiet"]) != 0 or _read(out) != ref:
+            raise AssertionError(f"files: cli {argv[0]} is not byte-identical to the entry point's file")
+    if (cli.main(["--json", golden_aea, path["card.json"], "--quiet"]) != 0
+            or cli.main(["--json", golden_aea, path["cpu.json"], "--quiet", "--device", "cpu"]) != 0):
+        raise AssertionError("files: cli --json failed")
+    if json.loads(_read(path["card.json"])) != json.loads(_read(path["cpu.json"])):
+        raise AssertionError("files: cli --json on the card differs from the CPU's dump")
+
+    # 9d. encode_clips: five ragged clips, mono and stereo, against each alone
+    src = testing.synth_audio(700, 2)
+    clips = [src[0, : 100 * 512 + 17], src[:, 5000: 5000 + 300 * 512], src[1, : 37], src[:, : 511],
+             src[0, 9000: 9000 + 699 * 512 + 300]]
+    batched = encode_clips(clips, options)
+    diff = []
+    for clip, got in zip(clips, batched):
+        solo = encode_pcm(np.atleast_2d(clip), options)
+        if got.shape != solo.shape:
+            raise AssertionError(f"encode_clips: {got.shape} units against {solo.shape} alone")
+        diff.append(float((got != solo).mean()))
+    if max(diff) > 0.01:
+        raise AssertionError(f"encode_clips: shares of differing bytes {diff} exceed 1%")
+
+    # 9e. times: three more runs of each, their median and split beside the first
+    repeats = {"encode": [], "decode": []}
+    for _ in range(3):
+        for part, run, src, out in (("encode", encode_file, path["in.wav"], path["resumed.aea"]),
+                                    ("decode", decode_file, path["out.aea"], path["resumed.wav"])):
+            split = {}
+            t0 = time.perf_counter()
+            run(src, out, chunk_frames=CHUNK, timings=split)
+            repeats[part].append((time.perf_counter() - t0, split))
+    shutil.rmtree(work)
+    cf = nch * nframes
+    med = {part: sorted(r, key=lambda x: x[0])[1] for part, r in repeats.items()}
+    print(f"files: encode_file of {nframes} x {nch} frames (a {wav_size}-byte WAV) {enc_wall:.4f} s first, repeats "
+          f"{', '.join(f'{w:.4f}' for w, _ in repeats['encode'])} s = {cf / med['encode'][0]:.1f} channel-frames/s "
+          f"(median); decode_file {dec_wall:.4f} s first, repeats {', '.join(f'{w:.4f}' for w, _ in repeats['decode'])} "
+          f"s = {cf / med['decode'][0]:.1f} channel-frames/s; in memory (phase 6, median repeat): encode "
+          f"{walls['encode']:.4f} s, decode {walls['decode']:.4f} s; on {smi}")
+    for part in ("encode", "decode"):
+        print(f"files: {part}_file split, first run {timings[part]}; median repeat {med[part][1]}")
+    print(f"files: units and int16 equal to phase 6's; kill + resume byte-identical for both; CLI --encode/--decode "
+          f"byte-identical, --json equal to the CPU's; encode_clips differing bytes per clip {diff}; launches {launches}")
+    return {"encode_file_seconds": enc_wall, "decode_file_seconds": dec_wall,
+            "repeat_seconds": {p: [w for w, _ in r] for p, r in repeats.items()},
+            "encode_file_channel_frames_per_s": cf / med["encode"][0],
+            "decode_file_channel_frames_per_s": cf / med["decode"][0],
+            "in_memory_seconds": {"encode": walls["encode"], "decode": walls["decode"]},
+            "timings": timings, "repeat_timings": {p: [t for _, t in r] for p, r in repeats.items()},
+            "launches": launches, "encode_clips_differing_bytes": diff, "card": smi}
 
 
 def main() -> int:
@@ -489,6 +633,11 @@ def main() -> int:
           f"{prof_enc['device_launches'] + prof_dec['device_launches']} device launches")
     record["profile_one_chunk"] = {"encode": prof_enc, "decode": prof_dec, "device_ms": busy,
                                    "host_wall_ms_unprofiled": chunk_ms}
+
+    # 9. the file layer on the card: phase 6's stream as a WAV file
+    record["files"] = files_phase(pcm16, units, pcm, options, smi, walls, os.path.join(fixtures, "golden.aea"))
+    for row in rows:
+        row["launches_files"] = record["files"]["launches"][row["name"]]
 
     record["kernels"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

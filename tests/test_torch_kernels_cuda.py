@@ -148,6 +148,42 @@ def test_encode_on_the_card_matches_plain_and_decodes(card):
     assert torch.equal(fd.block_modes.cpu(), fd_cpu.block_modes)
 
 
+@pytest.mark.cuda
+def test_file_transcodes_on_the_card_match_the_cpu_path(card, tmp_path):
+    """encode_file on the card gives encode_pcm's units on the card, within
+    1% of the bytes of the CPU run; decode_file on the card gives the CPU
+    run's WAV byte for byte (decode is bit-exact); every kernel launched;
+    a killed and resumed decode gives the same file."""
+    from carta1_tpu_torch import decode_file, encode_file
+    from carta1_tpu_torch.io.wav import float_to_int16, write_wav
+
+    i16 = float_to_int16(testing.synth_audio(700, 2)[:, : 700 * 512 - 99])
+    src, aea_card, aea_cpu = (str(tmp_path / n) for n in ("in.wav", "card.aea", "cpu.aea"))
+    write_wav(src, i16)
+    kernels.reset_launches()
+    encode_file(src, aea_card, chunk_frames=256, device=card)
+    decode_file(aea_card, str(tmp_path / "card.wav"), chunk_frames=256, device=card)
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("alloc_sweep", "read_fields", "qmf_taps", "imdct_exact_256")), \
+        kernels.LAUNCHES
+    encode_file(src, aea_cpu, chunk_frames=256, device="cpu")
+    _, units = read_aea(aea_card)
+    assert np.array_equal(units, encode_pcm(i16, device=card, chunk_frames=256))
+    assert (units != read_aea(aea_cpu)[1]).mean() < 0.01
+    decode_file(aea_card, str(tmp_path / "cpu.wav"), chunk_frames=256, device="cpu")
+    card_wav = open(tmp_path / "card.wav", "rb").read()
+    assert card_wav == open(tmp_path / "cpu.wav", "rb").read()
+
+    def kill(done, total):
+        if done >= 512:
+            raise KeyboardInterrupt("simulated kill")
+
+    resumed, ck = str(tmp_path / "resumed.wav"), str(tmp_path / "ck.npz")
+    with pytest.raises(KeyboardInterrupt):
+        decode_file(aea_card, resumed, chunk_frames=256, device=card, checkpoint=ck, checkpoint_every=1, on_progress=kill)
+    decode_file(aea_card, resumed, chunk_frames=256, device=card, checkpoint=ck, checkpoint_every=1)
+    assert open(resumed, "rb").read() == card_wav
+
+
 @pytest.mark.parametrize(
     "call",
     [
