@@ -1,124 +1,321 @@
-// K4: the budgeted greedy sweep of the bit allocators.
+// K4: the bit allocators, each whole in one kernel.
 //
-// Replaces carta1_tpu/ops/bitalloc.py _sweep, a lax.scan over the candidate
-// positions that XLA compiles into one program (the JAX package has no
-// Pallas kernel here).  As eager PyTorch the same loop is about twelve
-// small launches per position, 780 positions per frame batch, so the port
-// runs it as one kernel.  Semantics, word for word those of
-// gold/coding.py allocate_bits_sweep and of the scan's step:
+// Replaces carta1_tpu/ops/bitalloc.py allocate_bits_rdo (:102) and
+// allocate_bits (:187), whole: each is one XLA program (the error curve,
+// the hull, a lax.sort of the 780 candidate steps per frame and the
+// lax.scan of _sweep); the JAX package has no Pallas kernel here.  The
+// kernel reads the coefficients and scale factors and writes the word
+// lengths.  The error planes, the slopes and the sorted candidates never
+// reach device memory.
 //
-//   remaining = budget; abandoned = {}; wl[0..51] = 0
-//   for each candidate c of the frame, in the order given:
-//     bfu = (c >> 13) & 63; cost = (c >> 1) & 0xFFF; valid = c & 1
-//     if !valid or bfu in abandoned: continue
-//     if cost > remaining: abandoned += bfu        (never revisited)
-//     else: remaining -= cost; wl[bfu] += 1
+// Semantics, those of the plain version (ops/bitalloc.py rdo_candidates or
+// reference_candidates, then bitalloc_kernels.alloc_sweep_plain):
+//   err[b][w]  = sum over the BFU's slots k, left to right in f32, of d*d,
+//                d = v - q * step[sf][w],
+//                q = clamp(trunc(x + (x >= 0 ? 0.5 : -0.5)), -R_w, R_w),
+//                x = v * norm[sf][w], R_w = 2^w - 1 (tables.QUANT_RANGES)
+//   e[b][w]    = err[b][w] * weight[sf]      (1.0 at bias 1)
+//   s[b][i]    = (e[b][i] - e[b][i+1]) * per_bit[b][i],  i = 0..14
+//   p[b][i]    = max(s[b][i..14])            NaN if any of them is NaN
+//   valid      = sf > 0 and p > 0
+// then every valid step, in descending order of p with ties to the lower
+// (BFU, step), is paid for from the budget (1136 bits) if it fits, and
+// abandons its BFU if it does not.  The reference allocator's p is
+// 1024 - rank[sf][i] (ops/bitalloc.py _rank_table), valid where sf > 0.
+// Every f32 operation is an explicit round-to-nearest intrinsic or an
+// exact one (trunc, min, max, copysign); the build adds -fmad=false and no
+// fast-math flag, so nothing is contracted or flushed to zero.  The one
+// liberty: x's rounding offset is copysign(0.5, x).  It differs from the
+// select only at x = -0 and x = NaN, where q becomes -0 instead of +0, or
+// another NaN; d * d, and so the sums, are the same bits either way.
 //
-// cands is [frames, ncand] int32, already in descending-priority order;
-// out is [frames, 52] int32.  Integer only: no rounding question.
+// Why a merge equals the stable sort: after the hull, p is non-increasing
+// along a BFU's steps, so each BFU's valid steps form a list already in
+// sort order, and the sorted sequence of all 780 is the 52-way merge of
+// those lists that takes the largest head, ties to the lower BFU (the
+// reference's max-heap, codec/coding/bitallocation.js).  A skipped
+// candidate changes nothing, so a BFU that is abandoned or has no valid
+// step left simply leaves the merge.  The reference's ranks are strictly
+// increasing along a BFU's steps (held by a CPU test), so the same holds
+// for it.  One more step: the budget left only falls, so a head that costs
+// more than it now would be abandoned whenever its turn came; it is
+// dropped at once, and every pop then pays.  A frame pops its accepted
+// steps only (about 73 on music, at most 1136 / 4), not 780 candidates.
 //
-// Bound on this card: bytes (one 4-byte read per candidate, a handful of
-// integer operations on it).  One thread owns one frame and walks its
-// candidates in order, so what the walk costs is latency: a row-per-thread
-// read of [frames, ncand] would be uncoalesced and every step would wait on
-// device memory.  A block therefore takes kFrames frames and has two kinds
-// of warps: the first two sweep (one thread per frame) the tile of kTile
-// candidates that lies in shared memory, while the other six stage the next
-// tile into a second buffer (each warp reads whole 128-byte row segments,
-// several in flight); one barrier per tile swaps the buffers.  The
-// abandoned set is a 64-bit register; the word-length counters, indexed by
-// a loaded value, live in shared memory as cnt[bfu][frame] (no bank
-// conflicts; rows of the tile are padded for the same reason) and leave
-// through coalesced stores.
+// Bound on this card: f32 operations.  A frame reads 4,160 bytes of
+// coefficients and does 9 f32 operations per coefficient and word length
+// (16 word lengths), about 18 per byte; the merge is a chain of warp
+// reductions, hidden by the SM's other warps.  The design: one warp per
+// frame.  The warp stages its frame's [52, 20] f32 into shared memory by
+// 16-byte cp.async.  For the error curves lane l takes one or two BFUs
+// whose slots sum to at most 20, in one loop over both (the warp runs 20
+// slot steps, not the 26 or 29 of a BFU-per-lane split); each step updates
+// the 16 word lengths' sums in registers, and a finished BFU's sums go to
+// shared memory.  BFUs with sf 0 cost nothing: they are never valid.  Then
+// lane l takes BFUs l and l + 32 (mask 0 from lane 20 on): it forms their
+// slopes, hulls and valid masks, leaves the prices in shared memory over
+// the sums, and merges.  Each pop is a __reduce_max_sync of the heads (a
+// positive float's bits order as a uint32; 0 is "none"), a ballot for the
+// lowest BFU that holds the maximum and a shuffle of its cost; the winning
+// lane advances its head through the valid mask.  Outputs leave as
+// coalesced stores.
 #include "exact.cuh"
+
+#include <cuda_pipeline_primitives.h>
 
 namespace {
 
-constexpr int kFrames = 64;     // frames per block = sweeping threads (warps 0 and 1)
-constexpr int kThreads = 256;   // the other six warps stage the next tile meanwhile
-constexpr int kSweepWarps = kFrames / 32;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;       // candidates staged per pass
-constexpr int kBfuSlots = 64;   // the candidate's BFU field has 6 bits
 constexpr int kBfus = 52;
+constexpr int kSlots = 20;               // coefficient slots per BFU
+constexpr int kSteps = 15;               // word-length steps per BFU
+constexpr int kWls = 16;                 // word lengths
+constexpr int kWarps = 4;                // frames per block (bitalloc_kernels.BLOCK_FRAMES)
+constexpr int kFrameFloats = kBfus * kSlots;
+constexpr unsigned kFull = 0xffffffffu;
 
-// Warps FirstWarp .. kWarps-1 copy candidates c0 .. c0+kTile-1 of the block's
-// rows into `tile`; the trip count is a constant, so every load of a warp
-// is in flight before the first store.
-template <int FirstWarp>
-__device__ __forceinline__ void stage(int (*tile)[kTile + 1], const int* __restrict__ cands, long long f0,
-                                      int rows, int ncand, int c0, int warp, int lane) {
-  constexpr int kStagers = kWarps - FirstWarp;
-  constexpr int kTrips = (kFrames + kStagers - 1) / kStagers;
-  if (lane >= min(kTile, ncand - c0)) return;
-  const int* src = cands + f0 * ncand + c0 + lane;
-  int v[kTrips];
-#pragma unroll
-  for (int j = 0; j < kTrips; ++j) {
-    const int r = warp - FirstWarp + j * kStagers;
-    v[j] = r < rows ? src[static_cast<long long>(r) * ncand] : 0;
-  }
-#pragma unroll
-  for (int j = 0; j < kTrips; ++j) {
-    const int r = warp - FirstWarp + j * kStagers;
-    if (r < kFrames) tile[r][lane] = v[j];
+__device__ __forceinline__ float max_nan(float a, float b) {     // torch.maximum: NaN if either is
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float clamp_nan(float t, float r) {   // torch.clamp: NaN stays NaN
+  float lo, hi;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(lo) : "f"(t), "f"(-r));
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(hi) : "f"(lo), "f"(r));
+  return hi;
+}
+
+// The error curves' BFUs of lane l: a first and (or -1) a second, slots at
+// most 20 in all (SPECS_PER_BFU: 8 8 8 8 4 4 4 4 8 8 8 8, 6 x 12, 7 x 4,
+// 9 x 4, 10 x 4, 12 x 8, 20 x 8).
+__device__ __forceinline__ void lane_bfus(int lane, int& a, int& b) {
+  if (lane < 8) {
+    a = 44 + lane, b = -1;                                    // 20
+  } else if (lane < 16) {
+    a = 36 + lane - 8, b = lane < 12 ? lane - 8 : lane - 4;   // 12 + 8
+  } else if (lane < 20) {
+    a = 32 + lane - 16, b = 4 + lane - 16;                    // 10 + 4
+  } else if (lane < 24) {
+    a = 28 + lane - 20, b = 12 + lane - 20;                   // 9 + 6
+  } else if (lane < 28) {
+    a = 24 + lane - 24, b = 16 + lane - 24;                   // 7 + 6
+  } else {
+    a = 20 + lane - 28, b = -1;                               // 6
   }
 }
 
-__global__ void __launch_bounds__(kThreads) alloc_sweep_kernel(
-    const int* __restrict__ cands, int* __restrict__ out, long long frames, int ncand, int budget) {
-  __shared__ int tile[2][kFrames][kTile + 1];
-  __shared__ int cnt[kBfuSlots][kFrames];
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const long long f0 = static_cast<long long>(blockIdx.x) * kFrames;
-  const long long left = frames - f0;
-  const int rows = left < kFrames ? static_cast<int>(left) : kFrames;
+__device__ __forceinline__ int table_row(int s) { return min(max(s, 0), 63); }
 
-  if (t < kFrames) {
-    for (int b = 0; b < kBfuSlots; ++b) cnt[b][t] = 0;
+// The 16 running sums of one BFU's error curve.
+struct Curve {
+  float norm[kWls], step[kWls], err[kWls];
+
+  __device__ __forceinline__ void start(const float* __restrict__ norm_tab, const float* __restrict__ step_tab,
+                                        int s) {
+    const float4* n4 = reinterpret_cast<const float4*>(norm_tab + table_row(s) * kWls);
+    const float4* s4 = reinterpret_cast<const float4*>(step_tab + table_row(s) * kWls);
+#pragma unroll
+    for (int j = 0; j < kWls / 4; ++j) {
+      const float4 n = __ldg(n4 + j), t = __ldg(s4 + j);
+      norm[4 * j] = n.x, norm[4 * j + 1] = n.y, norm[4 * j + 2] = n.z, norm[4 * j + 3] = n.w;
+      step[4 * j] = t.x, step[4 * j + 1] = t.y, step[4 * j + 2] = t.z, step[4 * j + 3] = t.w;
+    }
+#pragma unroll
+    for (int w = 0; w < kWls; ++w) err[w] = 0.0f;
   }
-  stage<0>(tile[0], cands, f0, rows, ncand, 0, warp, lane);
-  __syncthreads();
 
+  __device__ __forceinline__ void add(float v) {
+#pragma unroll
+    for (int w = 0; w < kWls; ++w) {
+      const float x = __fmul_rn(v, norm[w]);
+      const float t = truncf(__fadd_rn(x, copysignf(0.5f, x)));
+      const float q = clamp_nan(t, static_cast<float>((1 << w) - 1));
+      const float d = __fsub_rn(v, __fmul_rn(q, step[w]));
+      err[w] = __fadd_rn(err[w], __fmul_rn(d, d));
+    }
+  }
+
+  __device__ __forceinline__ void store(float* sums) const {
+#pragma unroll
+    for (int w = 0; w < kWls; ++w) sums[w] = err[w];
+  }
+};
+
+// One BFU of the merge: its valid steps left, the head's step, price and
+// cost, and the steps accepted.
+struct Head {
+  int b, s, pos, cost, wl;
+  unsigned mask, head;
+};
+
+__device__ __forceinline__ Head make_head(int b, int s, unsigned mask) {
+  Head h;
+  h.b = b, h.s = s, h.pos = 0, h.cost = 0, h.wl = 0, h.mask = mask, h.head = 0;
+  return h;
+}
+
+// BFU b's prices over its error sums (sums[16], overwritten by prices[15])
+// and its valid mask.
+__device__ __forceinline__ unsigned hull(float* sums, int b, float weight, const float* __restrict__ per_bit) {
+  float e[kWls];
+#pragma unroll
+  for (int w = 0; w < kWls; ++w) e[w] = __fmul_rn(sums[w], weight);
+  unsigned valid = 0;
+  float h = 0.0f;
+#pragma unroll
+  for (int i = kSteps - 1; i >= 0; --i) {
+    const float s = __fmul_rn(__fsub_rn(e[i], e[i + 1]), __ldg(per_bit + b * kSteps + i));
+    h = i == kSteps - 1 ? s : max_nan(s, h);
+    if (h > 0.0f) valid |= 1u << i;
+    sums[i] = h;
+  }
+  return valid;
+}
+
+// Move h to its first valid step at or after `from` (head 0 if none).
+template <class Price>
+__device__ __forceinline__ void seek(Head& h, const Price& price, const int* __restrict__ cost, int from) {
+  const unsigned rest = h.mask & (~0u << from);
+  if (rest) {
+    h.pos = __ffs(rest) - 1;
+    h.head = price(h);
+    h.cost = __ldg(cost + h.b * kSteps + h.pos);
+  } else {
+    h.head = 0;
+  }
+}
+
+// The merge-sweep of one frame; lane l owns BFUs lo = l and hi = l + 32.
+// Every lane runs every pop.
+template <class Price>
+__device__ __forceinline__ void merge(Head& lo, Head& hi, const Price& price, const int* __restrict__ cost,
+                                      int budget, int lane) {
+  seek(lo, price, cost, 0);
+  seek(hi, price, cost, 0);
   int remaining = budget;
-  unsigned long long abandoned = 0ull;
-  int cur = 0;
-  for (int c0 = 0; c0 < ncand; c0 += kTile, cur ^= 1) {
-    if (warp >= kSweepWarps) {
-      if (c0 + kTile < ncand) stage<kSweepWarps>(tile[cur ^ 1], cands, f0, rows, ncand, c0 + kTile, warp, lane);
-    } else if (t < rows) {
-      const int n = min(kTile, ncand - c0);
-      for (int i = 0; i < n; ++i) {
-        const int c = tile[cur][t][i];
-        const int bfu = (c >> 13) & (kBfuSlots - 1);
-        const int cost = (c >> 1) & 0xFFF;
-        const unsigned long long bit = 1ull << bfu;
-        if ((c & 1) && !(abandoned & bit)) {
-          if (cost > remaining) {
-            abandoned |= bit;
-          } else {
-            remaining -= cost;
-            cnt[bfu][t] += 1;
-          }
-        }
+  while (true) {
+    if (lo.cost > remaining) lo.head = 0;                               // abandoned, whenever its turn
+    if (hi.cost > remaining) hi.head = 0;
+    const unsigned top = __reduce_max_sync(kFull, max(lo.head, hi.head));
+    if (top == 0) break;
+    const unsigned in_lo = __ballot_sync(kFull, lo.head == top);
+    const bool is_lo = in_lo != 0;                                      // warp-uniform
+    const unsigned who = is_lo ? in_lo : __ballot_sync(kFull, hi.head == top);
+    const int w = __ffs(who) - 1;                                       // the lowest BFU wins a tie
+    remaining -= __shfl_sync(kFull, is_lo ? lo.cost : hi.cost, w);      // it fits
+    if (lane == w) {
+      if (is_lo) {
+        ++lo.wl;
+        seek(lo, price, cost, lo.pos + 1);
+      } else {
+        ++hi.wl;
+        seek(hi, price, cost, hi.pos + 1);
       }
     }
-    __syncthreads();     // the next tile is staged, this one is consumed
-  }
-  const int total = rows * kBfus;
-  for (int idx = t; idx < total; idx += kThreads) {
-    out[f0 * kBfus + idx] = cnt[idx % kBfus][idx / kBfus];
   }
 }
+
+__device__ __forceinline__ void store(int* __restrict__ out, long long f, const Head& lo, const Head& hi, int lane) {
+  out[f * kBfus + lane] = lo.wl;
+  if (lane + 32 < kBfus) out[f * kBfus + lane + 32] = hi.wl;
+}
+
+struct SharedPrice {
+  const float* prio;
+  __device__ __forceinline__ unsigned operator()(const Head& h) const {
+    return __float_as_uint(prio[h.b * kWls + h.pos]);
+  }
+};
+
+struct RankPrice {
+  const int* rank;
+  __device__ __forceinline__ unsigned operator()(const Head& h) const {
+    return 1024u - static_cast<unsigned>(__ldg(rank + table_row(h.s) * kSteps + h.pos));
+  }
+};
+
+__global__ void __launch_bounds__(kWarps * 32) alloc_rdo_kernel(
+    const float* __restrict__ bfu, const int* __restrict__ sf, const float* __restrict__ norm_tab,
+    const float* __restrict__ step_tab, const float* __restrict__ weight, const float* __restrict__ per_bit,
+    const int* __restrict__ cost, const int* __restrict__ specs, int* __restrict__ out, long long frames,
+    int budget) {
+  __shared__ __align__(16) float data_s[kWarps][kFrameFloats];
+  __shared__ float sums_s[kWarps][kBfus * kWls];          // error sums, then prices
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long f = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (f >= frames) return;                       // no block-wide barrier follows
+
+  // stage the frame: 260 coalesced 16-byte copies
+  const float* src = bfu + f * kFrameFloats;
+  float* data = data_s[warp];
+  for (int k = lane; k < kFrameFloats / 4; k += 32) __pipeline_memcpy_async(data + 4 * k, src + 4 * k, 16);
+  __pipeline_commit();
+  const int* sfrow = sf + f * kBfus;
+  int a, b;
+  lane_bfus(lane, a, b);
+  const int sa = sfrow[a], sb = b >= 0 ? sfrow[b] : 0;
+  const int na = sa > 0 ? __ldg(specs + a) : 0, nb = b >= 0 && sb > 0 ? __ldg(specs + b) : 0;
+  float* sums = sums_s[warp];
+  __pipeline_wait_prior(0);
+  __syncwarp();
+
+  // the error curves of BFUs with sf > 0: one loop over the slots of both
+  int cur = na ? a : b, n = na ? na : nb, left = na ? nb : 0;
+  Curve curve;
+  if (na + nb) curve.start(norm_tab, step_tab, na ? sa : sb);
+  for (int j = 0, k = 0; j < na + nb; ++j) {
+    curve.add(data[cur * kSlots + k]);
+    if (++k == n) {
+      curve.store(sums + cur * kWls);
+      if (left) {
+        cur = b, n = left, left = 0, k = 0;
+        curve.start(norm_tab, step_tab, sb);
+      }
+    }
+  }
+  __syncwarp();
+
+  // hulls of BFUs lane and lane + 32, then the merge
+  const int slo = sfrow[lane], shi = lane + 32 < kBfus ? sfrow[lane + 32] : 0;
+  const unsigned mlo = slo > 0 ? hull(sums + lane * kWls, lane, __ldg(weight + table_row(slo)), per_bit) : 0u;
+  const unsigned mhi = shi > 0 ? hull(sums + (lane + 32) * kWls, lane + 32, __ldg(weight + table_row(shi)), per_bit)
+                               : 0u;
+  Head lo = make_head(lane, slo, mlo), hi = make_head(lane + 32, shi, mhi);
+  merge(lo, hi, SharedPrice{sums}, cost, budget, lane);
+  store(out, f, lo, hi, lane);
+}
+
+__global__ void __launch_bounds__(kWarps * 32) alloc_reference_kernel(
+    const int* __restrict__ sf, const int* __restrict__ rank, const int* __restrict__ cost, int* __restrict__ out,
+    long long frames, int budget) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long f = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (f >= frames) return;
+  const int* sfrow = sf + f * kBfus;
+  const int slo = sfrow[lane], shi = lane + 32 < kBfus ? sfrow[lane + 32] : 0;
+  constexpr unsigned kAll = (1u << kSteps) - 1;
+  Head lo = make_head(lane, slo, slo > 0 ? kAll : 0u);
+  Head hi = make_head(lane + 32, shi, shi > 0 ? kAll : 0u);
+  merge(lo, hi, RankPrice{rank}, cost, budget, lane);
+  store(out, f, lo, hi, lane);
+}
+
+unsigned grid_for(long long frames) { return static_cast<unsigned>((frames + kWarps - 1) / kWarps); }
 
 }  // namespace
 
-extern "C" int carta1_alloc_sweep(const int* cands, int* out, long long frames, int ncand,
-                                  int budget, void* stream) {
-  const long long grid = (frames + kFrames - 1) / kFrames;
-  alloc_sweep_kernel<<<static_cast<unsigned>(grid), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      cands, out, frames, ncand, budget);
+extern "C" int carta1_alloc_rdo(const float* bfu, const int* sf, const float* norm, const float* step,
+                                const float* weight, const float* per_bit, const int* cost, const int* specs,
+                                int* out, long long frames, int budget, void* stream) {
+  alloc_rdo_kernel<<<grid_for(frames), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      bfu, sf, norm, step, weight, per_bit, cost, specs, out, frames, budget);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int carta1_alloc_reference(const int* sf, const int* rank, const int* cost, int* out, long long frames,
+                                      int budget, void* stream) {
+  alloc_reference_kernel<<<grid_for(frames), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      sf, rank, cost, out, frames, budget);
   return static_cast<int>(cudaGetLastError());
 }

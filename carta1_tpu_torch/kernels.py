@@ -40,15 +40,16 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> (library, what it replaces in the JAX package: a Pallas
-# kernel, or for alloc_sweep the lax.scan that XLA compiled into one
-# program).  One library per source.
+# kernel, or for the allocators the whole function that XLA compiled into
+# one program).  One library per source.
 KERNELS = {
     "imdct_exact_64": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
     "imdct_exact_256": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
     "imdct_exact_512": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
     "qmf_taps": ("qmf_taps", "carta1_tpu/ops/exact_qmf_pallas.py:79"),
     "read_fields": ("bitpack_read", "carta1_tpu/ops/bitpack_pallas.py:39"),
-    "alloc_sweep": ("alloc_sweep", "carta1_tpu/ops/bitalloc.py:58"),
+    "alloc_rdo": ("alloc_sweep", "carta1_tpu/ops/bitalloc.py:102"),
+    "alloc_reference": ("alloc_sweep", "carta1_tpu/ops/bitalloc.py:187"),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in KERNELS.values()}))
 

@@ -2,17 +2,21 @@
 
 Exact reformulation of the reference's max-heap greedy
 (codec/coding/bitallocation.js:78-164), as in `carta1_tpu/ops/bitalloc.py`:
-per BFU the step priorities are strictly decreasing in word length, so the
+per BFU the step priorities are non-increasing in word length, so the
 heap's pop order equals one global descending-priority sweep over all
 52 x 15 candidate steps with the heap's abandon-on-overflow rule (a BFU
 whose next step does not fit is dropped and never revisited, while cheaper
 steps of other BFUs continue).
 
-Both allocators order each frame's candidates with one `torch.sort` (the
-JAX package sorts with `lax.sort`, outside any kernel) and hand them, packed
-`bfu << 13 | cost << 1 | valid`, to the sweep: kernel K4
-(`ops/bitalloc_kernels.alloc_sweep`) on the card, its plain version on the
-CPU or with `plain=True`.
+On the card each allocator is one launch of kernel K4
+(`ops/bitalloc_kernels.alloc_rdo` / `alloc_reference`), which merges the
+52 per-BFU lists as the reference's heap does and never writes the
+candidates.  The plain version, here and in `bitalloc_kernels`, is the JAX
+package's formulation: the candidates of each frame ordered by one
+`torch.sort` (the JAX package's `lax.sort`), packed
+`bfu << 13 | cost << 1 | valid`, then the sweep
+(`bitalloc_kernels.alloc_sweep_plain`).  It runs on the CPU and with
+`plain=True`.
 
 Spec of `allocate_bits` (matched exactly): gold.coding.allocate_bits_sweep.
 """
@@ -66,8 +70,9 @@ def _bias_weights(bias: float, device: torch.device) -> torch.Tensor:
 
 def _running_max_from_right(x: torch.Tensor) -> torch.Tensor:
     """out[..., i] = max(x[..., i:]), the reverse `cummax` of the JAX code, as
-    four doubling steps of `maximum` (exact in any order; `torch.cummax`
-    over an innermost axis of 15 took 8.4 ms per stereo chunk on the H100)."""
+    four doubling steps of `maximum` (exact in any order, NaN wherever a NaN
+    lies at or right of i; `torch.cummax` over an innermost axis of 15 took
+    8.4 ms per stereo chunk on the H100)."""
     n = x.shape[-1]
     k = 1
     while k < n:
@@ -76,9 +81,70 @@ def _running_max_from_right(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _sweep(cands: torch.Tensor, plain: bool) -> torch.Tensor:
-    sweep = bitalloc_kernels.alloc_sweep_plain if plain else bitalloc_kernels.alloc_sweep
-    return sweep(cands.contiguous())
+def quant_factors(sf32: torch.Tensor, sf_on: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(norm, step) f32 [..., 16]: the quantizer's scale and the dequantizer's
+    step at every word length, op for op `ops.coding.quantize` and
+    `dequantize`, for scale factors sf32 f32 [...] (zero where not sf_on).
+    The kernel takes them as [64, 16] tables made by this same function."""
+    t = _tables(sf32.device)
+    active = sf_on.unsqueeze(-1) & (t["ranges"] > 0)
+    norm = torch.where(active, t["ranges"] / torch.where(sf32 > 0, sf32, t["one"]).unsqueeze(-1), t["zero"])
+    step = torch.where(active, sf32.unsqueeze(-1) / t["ranges"].clamp(min=1.0), t["zero"])
+    return norm, step
+
+
+def rdo_errors(bfu_data: torch.Tensor, sf_idx: torch.Tensor, allocation_bias: float) -> torch.Tensor:
+    """Squared error of quantize + dequantize at each of the 16 word lengths,
+    weighted for the bias: f32 [F, 52, 16].  bfu_data: f32 [F, 52, 20];
+    sf_idx: int32 [F, 52].
+
+    The 20 squared errors of a BFU are summed left to right in f32,
+    acc = d_0^2, then acc = acc + d_k^2 for k = 1..19 (padding slots add an
+    exact +0): the order `csrc/alloc_sweep.cu` repeats and
+    `testing.rdo_errors_reference` pins."""
+    t = _tables(sf_idx.device)
+    bias = float(allocation_bias)
+    sf32 = t["sf32"][sf_idx.long()]                                   # [F, 52]
+    norm, step = quant_factors(sf32, sf_idx > 0)                      # [F, 52, 16] each
+
+    # The coefficients go one word length at a time, so the temporaries stay
+    # [F, 52, 20] and only the 16 error planes are kept.  A padding slot is
+    # zeroed first and then quantizes to 0 with error 0: the same as masking
+    # its error afterwards.
+    data = torch.where(t["slot_mask"], bfu_data, t["zero"])
+    planes = torch.empty((16, *sf_idx.shape), dtype=torch.float32, device=sf_idx.device)
+    for wl in range(16):
+        rng = float(QUANT_RANGES[wl])
+        x = data * norm[..., wl:wl + 1]
+        q = torch.trunc(x + torch.where(x >= 0, t["half"], t["minus_half"])).clamp(-rng, rng)
+        d = data - q * step[..., wl:wl + 1]
+        sq = d * d
+        acc = sq[..., 0]
+        for k in range(1, C.MAX_BFU_SIZE):
+            acc = acc + sq[..., k]
+        planes[wl] = acc
+    err = planes.movedim(0, -1)                                       # [F, 52, 16]
+    if bias != 1.0:
+        # the reference's --bias semantics carried over: weight loud BFUs
+        err = err * _bias_weights(bias, sf_idx.device)[sf_idx.long()].unsqueeze(-1)
+    return err
+
+
+def rdo_priorities(
+    bfu_data: torch.Tensor, sf_idx: torch.Tensor, allocation_bias: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(priority f32 [F, 52, 15], valid bool [F, 52, 15]) of every step.
+
+    A step is priced by its measured squared-error reduction per bit; the
+    upper concave hull per BFU (a backward running max) makes the prices
+    non-increasing in word length.  A step is valid where its BFU's scale
+    factor is nonzero and its price is > 0 (not NaN): per BFU the valid
+    steps are one run of consecutive word lengths, after the last NaN."""
+    t = _tables(sf_idx.device)
+    err = rdo_errors(bfu_data, sf_idx, allocation_bias)
+    slopes = (err[..., :-1] - err[..., 1:]) * t["per_bit"]                       # [F, 52, 15]
+    prio = _running_max_from_right(slopes)
+    return prio, (sf_idx > 0).unsqueeze(-1) & (prio > 0)
 
 
 def reference_candidates(sf_idx: torch.Tensor, allocation_bias: float) -> torch.Tensor:
@@ -101,50 +167,19 @@ def allocate_bits(sf_idx: torch.Tensor, allocation_bias: float, plain: bool = Fa
     """The reference allocator.  sf_idx: int32 [F, 52] scale factor indices.
 
     Returns word_lengths int32 [F, 52] honoring used + 40 + 10 * 52 <= 1696."""
-    return _sweep(reference_candidates(sf_idx, allocation_bias), plain)
+    if plain:
+        return bitalloc_kernels.alloc_sweep_plain(reference_candidates(sf_idx, allocation_bias))
+    return bitalloc_kernels.alloc_reference(sf_idx.contiguous(), allocation_bias)
 
 
 def rdo_candidates(bfu_data: torch.Tensor, sf_idx: torch.Tensor, allocation_bias: float) -> torch.Tensor:
     """The measured-distortion allocator's candidates in sweep order: int32 [F, 780].
 
-    Quantizes the coefficients at every word length, prices each step by
-    the measured squared-error reduction per bit, takes the upper concave
-    hull per BFU, and orders the steps by one stable sort.  bfu_data: f32
-    [F, 52, 20]; sf_idx: int32 [F, 52]."""
+    The steps of `rdo_priorities`, ordered by one stable sort.  bfu_data:
+    f32 [F, 52, 20]; sf_idx: int32 [F, 52]."""
     t = _tables(sf_idx.device)
-    bias = float(allocation_bias)
-    sf32 = t["sf32"][sf_idx.long()]                                   # [F, 52]
-    sf_on = sf_idx > 0
-
-    # error of quantize + dequantize at each of the 16 word lengths, op for
-    # op `ops.coding.quantize` and `dequantize`.  The per-BFU factors of all
-    # word lengths are made at once ([F, 52, 16]); the coefficients go one
-    # word length at a time, so the temporaries stay [F, 52, 20] and only
-    # the 16 error planes are kept.  A padding slot is zeroed first and then
-    # quantizes to 0 with error 0: the same as masking its error afterwards.
-    active = sf_on.unsqueeze(-1) & (t["ranges"] > 0)                             # [F, 52, 16]
-    norm = torch.where(active, t["ranges"] / torch.where(sf32 > 0, sf32, t["one"]).unsqueeze(-1), t["zero"])
-    step = torch.where(active, sf32.unsqueeze(-1) / t["ranges"].clamp(min=1.0), t["zero"])
-    data = torch.where(t["slot_mask"], bfu_data, t["zero"])
-    planes = torch.empty((16, *sf_idx.shape), dtype=torch.float32, device=sf_idx.device)
-    for wl in range(16):
-        rng = float(QUANT_RANGES[wl])
-        x = data * norm[..., wl:wl + 1]
-        q = torch.trunc(x + torch.where(x >= 0, t["half"], t["minus_half"])).clamp(-rng, rng)
-        d = data - q * step[..., wl:wl + 1]
-        torch.sum(d * d, dim=-1, out=planes[wl])
-    err = planes.movedim(0, -1)                                       # [F, 52, 16]
-    if bias != 1.0:
-        # the reference's --bias semantics carried over: weight loud BFUs
-        err = err * _bias_weights(bias, sf_idx.device)[sf_idx.long()].unsqueeze(-1)
-
-    # per-bit slopes of the error curve, then the upper concave hull (a
-    # backward running max), so earlier steps always price >= later ones
-    slopes = (err[..., :-1] - err[..., 1:]) * t["per_bit"]                       # [F, 52, 15]
-    slopes = _running_max_from_right(slopes)
-    prio = slopes.reshape(-1, _NCAND)
-
-    valid = sf_on.repeat_interleave(15, dim=1) & (prio > 0)
+    prio, valid = rdo_priorities(bfu_data, sf_idx, allocation_bias)
+    prio, valid = prio.reshape(-1, _NCAND), valid.reshape(-1, _NCAND)
     # non-negative f32 bit patterns sort like the floats; negated, one
     # ascending stable sort gives the descending sweep (ties keep candidate
     # order: lower word lengths first within a BFU)
@@ -162,4 +197,6 @@ def allocate_bits_rdo(
 
     bfu_data: f32 [F, 52, 20]; sf_idx: int32 [F, 52].
     Returns word_lengths int32 [F, 52] honoring used + 40 + 10 * 52 <= 1696."""
-    return _sweep(rdo_candidates(bfu_data, sf_idx, allocation_bias), plain)
+    if plain:
+        return bitalloc_kernels.alloc_sweep_plain(rdo_candidates(bfu_data, sf_idx, allocation_bias))
+    return bitalloc_kernels.alloc_rdo(bfu_data.contiguous(), sf_idx.contiguous(), allocation_bias)

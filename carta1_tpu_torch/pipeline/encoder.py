@@ -2,8 +2,8 @@
 
 [..., F, 512] PCM -> FrameData: the QMF tree as strided convolutions,
 transient detection as batched FFT features, the windowed MDCT as basis
-products, a greedy rate-distortion allocation (sort + kernel K4) and the
-table-driven quantizer; the counterpart of `carta1_tpu/pipeline/encoder.py`.
+products, a greedy rate-distortion allocation (kernel K4, one launch) and
+the table-driven quantizer; the counterpart of `carta1_tpu/pipeline/encoder.py`.
 The stream state uses the gold engine's keys, so the engines are
 interchangeable mid-stream.  A leading channel axis on the PCM and the
 state batches channels.

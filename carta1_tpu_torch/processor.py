@@ -1,8 +1,9 @@
 """High-level transcode API (parity: codec/io/processor.js AudioProcessor).
 
 `encode_pcm` turns PCM into interleaved AEA sound units on the card: each
-chunk is uploaded as f32 or raw int16 frames, encoded (sort + K4 in the
-allocator) and packed on the device, so only 212-byte units come back.
+chunk is uploaded as f32 or raw int16 frames, encoded (the allocator is
+one launch of K4) and packed on the device, so only 212-byte units come
+back.
 `decode_units` turns interleaved AEA sound units into PCM on the card:
 each chunk is uploaded as raw 212-byte units, unpacked on the device (K3),
 decoded bit-exactly (K1, K2), and optionally converted to int16 there.

@@ -1,8 +1,10 @@
 """Seeded inputs for the kernels and the encoder checks.
 
-Edge inputs for the tiled kernels K1 (IMDCT), K2 (QMF taps) and K4
-(allocation sweep), the test signals of the encode-quality checks, and
-the amplitudes around every scale-factor table value.
+Edge inputs for the tiled kernels K1 (IMDCT), K2 (QMF taps) and K4 (the
+allocators, with NaN and inf among their inputs), the plain sweep's
+candidates, NumPy and heap references of the allocators, the test signals
+of the encode-quality checks, and the amplitudes around every scale-factor
+table value.
 
 One NumPy generator, used by the CPU tests (plain versions against the
 gold engine), by the card tests and by `chip_smoke.py` (kernels against
@@ -10,8 +12,8 @@ their plain versions).  The batches sit on and around a block's tile of
 rows; the values are the ones a tiling or a rounding can get wrong: +0,
 -0, f32 denormals, magnitudes whose f64 result rounds to inf at the final
 f32 store, and a single nonzero sample at either end of a row.  No row
-overflows before its last rounding, so no NaN appears and bitwise
-comparison stays meaningful.
+of `edge_rows` overflows before its last rounding, so no NaN appears and
+bitwise comparison stays meaningful.
 """
 
 from __future__ import annotations
@@ -115,18 +117,18 @@ def qmf_edge_work(frames: int, s: int, seed: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# K4: allocation sweep
+# The plain version's sweep (half of K4's plain version)
 # ---------------------------------------------------------------------------
 def _pack_cands(bfu, cost, valid) -> np.ndarray:
     return ((np.asarray(bfu) << 13) | (np.asarray(cost) << 1) | np.asarray(valid)).astype(np.int32)
 
 
 def sweep_edge_cases(block: int) -> list[tuple[str, np.ndarray]]:
-    """(name, candidates int32 [F, M]) for `alloc_sweep`, each candidate
-    packed bfu << 13 | cost << 1 | valid.  The sweep does not need its
-    candidates in priority order, so most cases shuffle the 780 real
+    """(name, candidates int32 [F, M]) for `alloc_sweep_plain`, each
+    candidate packed bfu << 13 | cost << 1 | valid.  The sweep does not need
+    its candidates in priority order, so most cases shuffle the 780 real
     (bfu, cost) steps per frame, which exercises the abandon rule hard.
-    `block` is the number of frames one block of the kernel takes."""
+    The batches lie around `block` frames."""
     from carta1_tpu_torch.tables import RDO_BUDGET, RDO_CAND_BFU, RDO_CAND_COST
 
     rng = np.random.default_rng(404)
@@ -173,6 +175,145 @@ def sweep_reference(cands: np.ndarray, budget: int) -> np.ndarray:
             remaining -= cost
             out[f, bfu] += 1
     return out[:, :52]
+
+
+# ---------------------------------------------------------------------------
+# K4: the allocators, whole
+# ---------------------------------------------------------------------------
+ALLOC_KINDS = ("random", "exact ties", "NaN and inf", "silent", "all 63", "denormals", "sparse")
+
+
+def alloc_inputs(kind: str, frames: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(bfu_data f32 [frames, 52, 20], sf_idx int32 [frames, 52]) of one kind:
+    - random: spectra over 14 binades, each BFU's scale factor near its peak's
+      (one off either way, a tenth of them 0), padding slots filled too;
+    - exact ties: every BFU holds the same coefficients and scale factor, so
+      the steps of BFUs of one size tie exactly; six loudness levels;
+    - NaN and inf: random, with NaN, +-inf and +-F32_MAX in a tenth of the
+      BFUs (and NaN in padding slots, which the allocators never read);
+    - silent: every scale factor 0 (nothing valid);
+    - all 63: every scale factor 63 and loud spectra (the budget runs out early);
+    - denormals: random, with f32 denormals or zeros of both signs in half
+      the slots and whole BFUs of denormals (their scale factor 1);
+    - sparse: one or two nonzero coefficients per BFU, whose error curves are
+      far from convex, so the hull makes plateaus inside a BFU."""
+    from carta1_tpu_torch.constants import BFU_SLOT_MASK, SCALE_FACTORS
+
+    rng = np.random.default_rng(seed)
+    shape = (frames, 52, 20)
+    bfu = rng.standard_normal(shape) * np.exp2(rng.integers(-10, 4, shape))
+
+    def near_peak(x: np.ndarray) -> np.ndarray:
+        peak = np.where(BFU_SLOT_MASK, np.abs(x), 0).max(axis=-1)
+        idx = np.searchsorted(SCALE_FACTORS, peak) + rng.integers(-1, 2, peak.shape)
+        return np.clip(idx, 0, 63)
+
+    if kind == "exact ties":
+        proto = rng.standard_normal(20) * 0.2
+        bfu = np.broadcast_to(np.where(BFU_SLOT_MASK, proto, 0), shape) * np.exp2(-(np.arange(frames) % 6))[:, None, None]
+        peak = np.abs(bfu[:, 0]).max(axis=-1)
+        sf = np.broadcast_to(np.searchsorted(SCALE_FACTORS, peak)[:, None], (frames, 52))
+    elif kind == "silent":
+        sf = np.zeros((frames, 52))
+    elif kind == "all 63":
+        bfu = rng.uniform(-1.0, 1.0, shape)
+        sf = np.full((frames, 52), 63)
+    elif kind == "denormals":
+        pick = rng.random(shape)
+        bfu[pick < 0.4] = _denormals(rng, int((pick < 0.4).sum()))
+        bfu[(pick >= 0.4) & (pick < 0.5)] = -0.0
+        bfu[:, ::3] = _denormals(rng, bfu[:, ::3].size).reshape(bfu[:, ::3].shape)   # whole BFUs of denormals
+        sf = np.where(rng.random((frames, 52)) < 0.1, 0, np.maximum(near_peak(bfu), 1))
+    elif kind == "sparse":
+        bfu = np.zeros(shape)
+        sf = rng.integers(10, 64, (frames, 52))
+        amp = SCALE_FACTORS[sf] * rng.choice([1.0, 0.9, 0.5, 0.26, 1 / 3], (frames, 52))
+        for k in range(2):
+            slot = rng.integers(0, 4, (frames, 52))
+            np.put_along_axis(bfu, slot[..., None] + 4 * k, (amp * rng.choice([1, -1, 0], (frames, 52)))[..., None], -1)
+    else:
+        sf = np.where(rng.random((frames, 52)) < 0.1, 0, near_peak(bfu))
+        if kind == "NaN and inf":
+            fi, bi = np.nonzero(rng.random((frames, 52)) < 0.1)
+            bfu[fi, bi, rng.integers(0, 4, fi.size)] = rng.choice([np.nan, np.inf, -np.inf, F32_MAX, -F32_MAX], fi.size)
+            bfu[:, :, 19][rng.random((frames, 52)) < 0.5] = np.nan
+        elif kind != "random":
+            raise ValueError(f"unknown kind {kind!r}; one of {ALLOC_KINDS}")
+    return bfu.astype(np.float32), np.ascontiguousarray(sf, dtype=np.int32)
+
+
+def alloc_edge_cases(block: int) -> list[tuple[str, np.ndarray, np.ndarray]]:
+    """(name, bfu_data, sf_idx) for `alloc_rdo` and `alloc_reference`: random
+    inputs in batches of 1, 2, block - 1, block + 1 and 131 frames, and every
+    other kind of `alloc_inputs` at block + 1 and 131 frames.  `block` is the
+    number of frames one block of the kernel takes."""
+    cases = [(f"random, {f} frames", *alloc_inputs("random", f, f)) for f in sorted({1, 2, max(block - 1, 1), block + 1, 131})]
+    for i, kind in enumerate(ALLOC_KINDS[1:]):
+        cases += [(f"{kind}, {f} frames", *alloc_inputs(kind, f, 100 + 2 * i + j)) for j, f in enumerate((block + 1, 131))]
+    return cases
+
+
+def rdo_errors_reference(bfu: np.ndarray, sf: np.ndarray, bias: float) -> np.ndarray:
+    """`bitalloc.rdo_errors` in NumPy f32, the squared errors summed left to
+    right over the 20 slots in a Python loop: f32 [F, 52, 16]."""
+    from carta1_tpu_torch.constants import BFU_SLOT_MASK, SCALE_FACTORS
+    from carta1_tpu_torch.tables import QUANT_RANGES
+
+    f32 = np.float32
+    sf32 = SCALE_FACTORS.astype(f32)[sf]
+    ranges = QUANT_RANGES.astype(f32)
+    active = (sf > 0)[..., None] & (ranges > 0)
+    out = np.empty((*sf.shape, 16), f32)
+    with np.errstate(all="ignore"):
+        norm = np.where(active, ranges / np.where(sf32 > 0, sf32, f32(1))[..., None], f32(0))
+        step = np.where(active, sf32[..., None] / np.maximum(ranges, f32(1)), f32(0))
+        data = np.where(BFU_SLOT_MASK, bfu, f32(0))
+        for wl in range(16):
+            x = data * norm[..., wl:wl + 1]
+            q = np.clip(np.trunc(x + np.where(x >= 0, f32(0.5), f32(-0.5))), -ranges[wl], ranges[wl])
+            d = data - q * step[..., wl:wl + 1]
+            acc = d[..., 0] * d[..., 0]
+            for k in range(1, 20):
+                acc = acc + d[..., k] * d[..., k]
+            out[..., wl] = acc
+        if bias != 1.0:
+            out *= (SCALE_FACTORS.astype(f32) ** f32(bias - 1.0)).astype(f32)[sf][..., None]
+    return out
+
+
+def merge_sweep_reference(prio: np.ndarray, valid: np.ndarray, budget: int) -> np.ndarray:
+    """The allocators' sweep as the reference's max-heap (bitallocation.js
+    78-164): per frame each BFU's valid steps (prio f32 [F, 52, 15], valid
+    bool [F, 52, 15]) form a list in step order; the heap holds each list's
+    head keyed (-price, BFU), so equal prices go to the lower BFU; a popped
+    step that fits is paid for and its list advances, one that does not
+    abandons its BFU.  int32 [F, 52] word lengths."""
+    import heapq
+
+    from carta1_tpu_torch.tables import RDO_CAND_COST
+
+    cost = RDO_CAND_COST.reshape(52, 15)
+    out = np.zeros(valid.shape[:2], np.int32)
+    for f in range(valid.shape[0]):
+        heap: list[tuple[float, int, int]] = []
+
+        def push(b: int, start: int) -> None:
+            later = np.flatnonzero(valid[f, b, start:])
+            if later.size:
+                p = start + int(later[0])
+                heapq.heappush(heap, (-float(prio[f, b, p]), b, p))
+
+        for b in range(52):
+            push(b, 0)
+        remaining = budget
+        while heap:
+            _, b, p = heapq.heappop(heap)
+            if cost[b, p] > remaining:
+                continue
+            remaining -= int(cost[b, p])
+            out[f, b] += 1
+            push(b, p + 1)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -7,14 +7,16 @@ toolkit:  python3 chip_smoke.py [--record PATH]
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
   2. build: compiles every kernel (K1 IMDCT at sizes 64/256/512, K2 QMF
-     taps, K3 field read, K4 allocation sweep) from carta1_tpu_torch/csrc;
+     taps, K3 field read, K4 the two bit allocators) from
+     carta1_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the first stereo 8192-frame chunk of the transcode gives it,
      and on edge inputs (batches around a block's tile, small widths, +0,
      -0, denormals, overflow to inf, lone samples at a row's ends; for K4
-     invalid candidates, every BFU abandoned, a budget met exactly, zero
-     costs): 0 differing words allowed; kernel, plain and library-call
-     times, the kernel's bound, and the time of an empty launch;
+     NaN and inf coefficients, silent and all-63 frames, exact ties across
+     BFUs, plateaus of the hull, each at biases 0.7, 1.0 and 2.0): 0
+     differing words allowed; kernel, plain and library-call times, the
+     kernel's bound, and the time of an empty launch;
   4. the golden fixture decoded to int16 on the card equals
      tests/fixtures/golden_decode.npz exactly;
   5. the encoder on the card against tests/fixtures/torch_encode_expect.npz
@@ -22,13 +24,15 @@ Phases (each raises on failure; nothing is caught):
      factors equal gold's with the reference allocator, round-trip PSNR at
      least gold's with the default one, the bit budget on every frame, the
      share of fields equal to the CPU run, and what an f32 log2 would make
-     of amplitudes around every scale-factor table value;
+     of amplitudes around every scale-factor table value; launch counters
+     reset before and read after: the path of K4's reference allocator;
   6. the main path: a stereo int16 stream of 4 x 8192 frames per channel,
      chunk by chunk through encode -> 212-byte units on the card -> decode
      -> int16, both stream states carried; launch counters reset just
      before and read just after; units and int16 must equal the same run
-     with the plain versions and a second run, every kernel must have
-     launched; then encode_pcm -> decode_units on a prefix, and the times
+     with the plain versions and a second run, every kernel of the path
+     (all but K4's reference allocator) must have launched; then
+     encode_pcm -> decode_units on a prefix, and the times
      of the transcode, of encode alone and of decode alone;
   7. the decode stream of golden units (2 x 8192 stereo frames through
      decode_units) against the plain path, and 64 units of random bytes;
@@ -36,8 +40,9 @@ Phases (each raises on failure; nothing is caught):
      time by operation, launches, the hand kernels' device time;
   9. the file layer: phase 6's stream as a WAV through encode_file and
      decode_file (units and int16 equal to phase 6's; launch counters reset
-     just before and read just after, every kernel must have launched), a
-     killed and resumed encode and decode (byte-identical), the CLI's
+     just before and read just after, every kernel of phase 6's path must
+     have launched), a killed and resumed encode and decode
+     (byte-identical), the CLI's
      --encode/--decode (byte-identical) and --json (equal to the CPU's dump),
      encode_clips against encode_pcm per clip (at most 1% of bytes differ),
      and the file walls (a first run and three repeats) and their split
@@ -67,11 +72,15 @@ CHUNK = 8192
 CHUNKS = 4
 DECODE_CHUNKS = 2          # the decode-only stream of golden units
 # NVIDIA H100 SXM data sheet peaks (dense, 700 W): HBM3 bytes/s, and FP64
-# outside the tensor cores.  The sheet's 34 TFLOP/s counts an FMA as two
-# operations; the exact kernels may not fuse a multiply with an add, so the
-# rate they can reach is half of it.
+# and FP32 outside the tensor cores.  The sheet's 34 and 67 TFLOP/s count an
+# FMA as two operations; the exact kernels may not fuse a multiply with an
+# add, so the rates they can reach are half of them.
 PEAK_BYTES_S = 3.35e12
 PEAK_F64_S = 17e12
+PEAK_F32_S = 33.5e12
+# which path's launch counts hold each kernel: K4's reference allocator runs
+# in phase 5 (allocator="reference"), every other kernel on the main path
+PATHS = {"alloc_reference": "phase 5"}
 
 
 def _smi() -> str:
@@ -95,8 +104,9 @@ def _mismatch(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
     return int((~same).sum()), float(err.max()) if err.numel() else 0.0
 
 
-def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F64_S * 1e3
+def _bound_ms(nbytes: float, ops: float, rate: float = PEAK_F64_S) -> tuple[float, str]:
+    """The least time for the bytes at the memory rate and the operations at `rate`."""
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -163,7 +173,7 @@ def files_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, optio
     decode_file(path["out.aea"], path["out.wav"], chunk_frames=CHUNK, timings=timings["decode"])
     dec_wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k, v in launches.items() if v == 0 and k not in PATHS]
     if missing:
         raise AssertionError(f"files: encode_file -> decode_file launched no {missing}: {launches}")
     meta, got_units = read_aea(path["out.aea"])
@@ -264,7 +274,7 @@ def main() -> int:
     from carta1_tpu_torch import constants as C
     from carta1_tpu_torch.constants import QMF_EVEN, QMF_ODD
     from carta1_tpu_torch.io.aea import read_aea
-    from carta1_tpu_torch.ops import bitalloc, bitalloc_kernels, bitpack, bitpack_kernels, imdct_kernels, qmf_kernels
+    from carta1_tpu_torch.ops import bitalloc_kernels, bitpack, bitpack_kernels, imdct_kernels, qmf_kernels
     from carta1_tpu_torch.ops.pcm import float_to_int16, int16_to_float
     from carta1_tpu_torch.pipeline.encoder import analysis_step, encoder_init_state
     from carta1_tpu_torch.processor import _decode_batch_dev, _encode_batch_dev, pcm_to_frames
@@ -316,7 +326,7 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     rows = []
 
-    def check(kname, cases, plain_fn, kernel_fn, nbytes, ops, reps, library=None, edge_cases=()):
+    def check(kname, cases, plain_fn, kernel_fn, nbytes, ops, reps, library=None, edge_cases=(), rate=PEAK_F64_S):
         bad, err = 0, 0.0
         for case in edge_cases:
             m, _ = _mismatch(kernel_fn(*case), plain_fn(*case))
@@ -334,7 +344,7 @@ def main() -> int:
         ms, host_ms = kernels.time_ms(lambda: [kernel_fn(*a) for a in cases], reps)
         plain_ms, _ = kernels.time_ms(lambda: [plain_fn(*a) for a in cases], max(2, reps // 10), warmup=1)
         lib_ms = kernels.time_ms(library, reps)[0] if library is not None else None
-        bound, by = _bound_ms(nbytes, ops)
+        bound, by = _bound_ms(nbytes, ops, rate)
         src, replaces = kernels.KERNELS[kname]
         rows.append({
             "name": kname, "route": "cuda", "source": f"carta1_tpu_torch/csrc/{src}.cu",
@@ -385,21 +395,44 @@ def main() -> int:
           read_bytes, 0, reps=50,
           library=lambda: [torch.gather(win64, 1, h) for h in anchors])
 
-    # K4 on the candidates both allocators make of that chunk
+    # K4, both allocators, on that chunk's coefficients and scale factors
     bfu, sf, _, _ = analysis_step(int16_to_float(upload(0)), encoder_init_state(dev, 2), options.band_thresholds)
-    bfu, sf = bfu.reshape(-1, C.NUM_BFUS, C.MAX_BFU_SIZE), sf.reshape(-1, C.NUM_BFUS)
-    cands_rdo = bitalloc.rdo_candidates(bfu, sf, options.allocation_bias).contiguous()
-    cands_ref = bitalloc.reference_candidates(sf, options.allocation_bias).contiguous()
-    del bfu
-    print("alloc_sweep: library_ms null -- no PyTorch call computes a budgeted sequential sweep")
-    check("alloc_sweep", [(cands_rdo,)], bitalloc_kernels.alloc_sweep_plain, bitalloc_kernels.alloc_sweep,
-          cands_rdo.numel() * 4 + frames * C.NUM_BFUS * 4, 0, reps=50,
-          edge_cases=[(cands_ref,)] + [(torch.from_numpy(c).to(dev),)
-                                       for _, c in testing.sweep_edge_cases(bitalloc_kernels.BLOCK_FRAMES)])
-    used = (bitalloc_kernels.alloc_sweep(cands_rdo) > 0).float().mean().item()
-    print(f"alloc_sweep: main-path candidates [{cands_rdo.shape[0]}, {cands_rdo.shape[1]}], "
-          f"{(cands_rdo & 1).float().mean().item():.3f} valid, {used:.3f} of BFUs given bits")
-    del cands_rdo, cands_ref
+    bfu = bfu.reshape(-1, C.NUM_BFUS, C.MAX_BFU_SIZE).contiguous()
+    sf = sf.reshape(-1, C.NUM_BFUS).contiguous()
+    bias = options.allocation_bias
+    alloc_edges = [(torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev))
+                   for _, b, s in testing.alloc_edge_cases(bitalloc_kernels.BLOCK_FRAMES)]
+    # f32 operations on this run's inputs: 9 per coefficient and word length
+    # of every BFU with a nonzero scale factor (mul, add, trunc, max, min,
+    # mul, sub, mul, add), and per such BFU 16 weight multiplies, 15 slope
+    # subtracts and multiplies and 14 maxima of the hull
+    active = sf > 0
+    coeffs = int((active.long() * torch.from_numpy(C.SPECS_PER_BFU).to(dev)).sum())
+    rdo_ops = 16 * 9 * coeffs + 60 * int(active.sum())
+    out_bytes = sf.numel() * 4
+    print("alloc_rdo, alloc_reference: library_ms null -- no PyTorch call computes a budgeted greedy allocation")
+    check("alloc_rdo", [(bfu, sf, bias)], bitalloc_kernels.alloc_rdo_plain, bitalloc_kernels.alloc_rdo,
+          bfu.numel() * 4 + sf.numel() * 4 + out_bytes, rdo_ops, reps=50, rate=PEAK_F32_S,
+          edge_cases=[(bfu, sf, b) for b in (0.7, 2.0)] + [(b, s, x) for b, s in alloc_edges for x in (0.7, 1.0, 2.0)])
+    check("alloc_reference", [(sf, bias)], bitalloc_kernels.alloc_reference_plain, bitalloc_kernels.alloc_reference,
+          sf.numel() * 4 + out_bytes, 0, reps=50,
+          edge_cases=[(sf, b) for b in (0.7, 2.0)] + [(s, x) for _, s in alloc_edges for x in (0.7, 1.0, 2.0)])
+    keys = torch.randint(0, 2**30, (frames, 780), dtype=torch.int32, device=dev)
+    sort_ms = kernels.time_ms(lambda: torch.sort(keys, dim=-1), 20)[0]
+    rows[-2]["sort_ms"] = rows[-1]["sort_ms"] = sort_ms
+    # with no budget every head is dropped before the first pop: the error curves and hulls alone
+    rows[-2]["curves_ms"] = kernels.time_ms(lambda: bitalloc_kernels.alloc_rdo(bfu, sf, bias, budget=0), 50)[0]
+    print(f"alloc_rdo split: error curves and hulls {rows[-2]['curves_ms']:.4f} ms (a budget of 0), the merge about "
+          f"{rows[-2]['ms'] - rows[-2]['curves_ms']:.4f} ms; alloc_reference, the merge alone on its ranks, "
+          f"{rows[-1]['ms']:.4f} ms")
+    wl = bitalloc_kernels.alloc_rdo(bfu, sf, bias)
+    wl_ref = bitalloc_kernels.alloc_reference(sf, bias)
+    print(f"alloc_rdo: main-path inputs [{frames}, {C.NUM_BFUS}, {C.MAX_BFU_SIZE}] f32 + [{frames}, {C.NUM_BFUS}] i32; "
+          f"{active.float().mean().item():.3f} of BFUs with a scale factor, {coeffs} coefficients; accepted steps per "
+          f"frame {wl.float().sum(dim=1).mean().item():.2f} (reference allocator "
+          f"{wl_ref.float().sum(dim=1).mean().item():.2f}); torch.sort of [{frames}, 780] int32, the plain "
+          f"version's sort, alone: {sort_ms:.4f} ms (speed reference)")
+    del bfu, sf, alloc_edges, keys, wl, wl_ref
 
     # 4. golden fixture, int16-exact on the card
     golden = np.load(os.path.join(fixtures, "golden_decode.npz"))["int16"]
@@ -413,6 +446,8 @@ def main() -> int:
     bits_of = torch.from_numpy(C.WORD_LENGTH_BITS.astype(np.int64)).to(dev)
     specs = torch.from_numpy(C.SPECS_PER_BFU.astype(np.int64)).to(dev)
     enc_rows = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
     for cls, sig in testing.signals(float(expect["seconds"])).items():
         fr = pcm_to_frames(sig)
         ref_card, _ = encode_frames(fr, EncoderOptions(allocator="reference"))
@@ -457,6 +492,11 @@ def main() -> int:
               f"mode flips {mode_flips}; equal to the CPU run: word_lengths {same['word_lengths']:.4f} "
               f"quantized {same['quantized']:.6f} scale_factors {same['scale_factors']:.4f}")
     record["encode_checks"] = enc_rows
+    launches_p5 = dict(kernels.LAUNCHES)
+    if not (launches_p5["alloc_reference"] and launches_p5["alloc_rdo"]):
+        raise AssertionError(f"encoder checks launched not both allocators: {launches_p5}")
+    print(f"encoder checks: launches {launches_p5}")
+    record["launches_phase5"] = launches_p5
 
     # what ceil(3 * (log2(a) + 21)) in f32 makes of amplitudes around every table
     # value, on the card and on the CPU, against the table comparison the port uses
@@ -496,7 +536,7 @@ def main() -> int:
     kernels.reset_launches()
     wall, (units, pcm) = timed(transcode)
     launches = dict(kernels.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k, v in launches.items() if v == 0 and k not in PATHS]
     if missing:
         raise AssertionError(f"main path launched no {missing}: {launches}")
     if units.shape != (2, CHUNK * CHUNKS, 212) or pcm.shape != (2, CHUNK * CHUNKS, 512) or pcm.dtype != torch.int16:
@@ -564,7 +604,9 @@ def main() -> int:
                            "short_frames_first_chunk": n_short, "short_frames": short_total,
                            "psnr_db": stream_psnr, "upload_one_chunk_seconds": upload_s}
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        path = PATHS.get(row["name"], "phase 6")
+        row["launches"] = (launches_p5 if path == "phase 5" else launches)[row["name"]]
+        row["launches_path"] = path
 
     # 7. the decode stream of golden units through decode_units, and malformed units
     decode_units(stream[: 2 * 256], 2, to_i16=True)
@@ -591,7 +633,7 @@ def main() -> int:
     # the encode and the decode of the stream's first chunk apart
     cuda = torch.autograd.DeviceType.CUDA
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    hand_names = ("imdct", "qmf_taps", "read_fields", "alloc_sweep")
+    hand_names = ("imdct", "qmf_taps", "read_fields", "alloc_rdo", "alloc_reference")
 
     def profile(fn) -> dict:
         with torch.profiler.profile(activities=acts) as prof:

@@ -2,9 +2,10 @@
 
 The same NumPy-seeded inputs go through the JAX function and its
 counterpart in the port; each comparison states its tolerance.  On the CPU
-the allocation sweep (K4) runs its plain PyTorch version; the kernel itself
-is held against that on the card (tests/test_torch_kernels_cuda.py,
-chip_smoke.py).
+the allocators (K4) run their plain PyTorch version; the kernel itself is
+held against that on the card (tests/test_torch_kernels_cuda.py,
+chip_smoke.py), and the merge it runs against the plain version on the
+CPU (tests/test_torch_alloc.py).
 """
 
 import os
@@ -307,7 +308,7 @@ def test_alloc_sweep_plain_equals_reference_loop(case):
     cases = testing.sweep_edge_cases(bitalloc_kernels.BLOCK_FRAMES)
     assert len(cases) == N_SWEEP_CASES
     name, cands = cases[case]
-    got = bitalloc_kernels.alloc_sweep(_t(cands)).numpy()          # a CPU tensor takes the plain version
+    got = bitalloc_kernels.alloc_sweep_plain(_t(cands)).numpy()
     assert got.dtype == np.int32 and got.shape == (cands.shape[0], 52), name
     assert np.array_equal(got, testing.sweep_reference(cands, tables.RDO_BUDGET)), name
 
@@ -321,17 +322,18 @@ def test_alloc_sweep_edge_cases_do_what_their_names_say():
     assert exact[0, :4].tolist() == [1, 0, 3, 0]
     assert ref("zero-cost steps only").sum() == (cases["zero-cost steps only"] & 1).sum()
     with pytest.raises(ValueError):
-        bitalloc_kernels.alloc_sweep(torch.zeros(4, 780, dtype=torch.int64))
+        bitalloc_kernels.alloc_sweep_plain(torch.zeros(4, 780, dtype=torch.int64))
     with pytest.raises(ValueError):
-        bitalloc_kernels.alloc_sweep(torch.zeros(4, 0, dtype=torch.int32))
+        bitalloc_kernels.alloc_sweep_plain(torch.zeros(4, 0, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("bias", [1.0, 2.0])
 def test_allocate_bits_rdo_against_jax(bias):
-    """Not bitwise by contract: the sum of 20 squared errors may be ordered
-    differently from XLA's, so slopes can differ in the last ulp and, at
-    near-ties, the sweep order with them.  Measured on this input: 1.0 of
-    the word lengths equal at bias 1.0, 0.9992 at bias 2.0; asserted >= 0.99."""
+    """Not bitwise by contract: the port sums the 20 squared errors left to
+    right (the order its kernel repeats), XLA in an order of its own, so
+    slopes can differ in the last ulp and, at near-ties, the sweep order
+    with them.  Measured on this input: 1.0 of the word lengths equal at
+    bias 1.0 and at bias 2.0; asserted >= 0.99."""
     rng = np.random.default_rng(11)
     bfu = (rng.standard_normal((RDO_FRAMES, 52, 20)) * 0.3).astype(np.float32)
     sf = rng.integers(0, 64, (RDO_FRAMES, 52)).astype(np.int32)

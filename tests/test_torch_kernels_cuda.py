@@ -109,27 +109,27 @@ def test_decode_units_kernels_match_plain_and_golden(card):
 
 
 @pytest.mark.cuda
-def test_alloc_sweep_kernel_edge_inputs_match_plain(card):
-    """Batches around a block's frames, invalid candidates, every BFU
-    abandoned, a budget met exactly, zero costs, widths off the tile."""
-    for name, cands in testing.sweep_edge_cases(bitalloc_kernels.BLOCK_FRAMES):
-        c = torch.from_numpy(cands).to(card)
-        before = kernels.LAUNCHES["alloc_sweep"]
-        got = bitalloc_kernels.alloc_sweep(c)
-        assert kernels.LAUNCHES["alloc_sweep"] == before + 1
-        assert torch.equal(got, bitalloc_kernels.alloc_sweep_plain(c)), name
-        assert np.array_equal(got.cpu().numpy(), testing.sweep_reference(cands, bitalloc_kernels.RDO_BUDGET)), name
+@pytest.mark.parametrize("bias", [0.7, 1.0, 2.0])
+def test_alloc_kernels_edge_inputs_match_plain(card, bias):
+    """Batches around a block's frames; NaN and inf coefficients, silent
+    and all-63 frames, exact ties across BFUs, plateaus of the hull,
+    denormals.  One launch per call, counted."""
+    for name, bfu, sf in testing.alloc_edge_cases(bitalloc_kernels.BLOCK_FRAMES):
+        b, s = torch.from_numpy(bfu).to(card), torch.from_numpy(sf).to(card)
+        before = dict(kernels.LAUNCHES)
+        got, got_ref = bitalloc_kernels.alloc_rdo(b, s, bias), bitalloc_kernels.alloc_reference(s, bias)
+        assert kernels.LAUNCHES["alloc_rdo"] == before["alloc_rdo"] + 1, name
+        assert kernels.LAUNCHES["alloc_reference"] == before["alloc_reference"] + 1, name
+        assert torch.equal(got, bitalloc_kernels.alloc_rdo_plain(b, s, bias)), name
+        assert torch.equal(got_ref, bitalloc_kernels.alloc_reference_plain(s, bias)), name
 
 
 @pytest.mark.cuda
-def test_alloc_sweep_kernel_on_both_allocators_candidates(card):
-    rng = np.random.default_rng(6)
-    sf = torch.from_numpy(rng.integers(0, 64, (300, 52)).astype(np.int32)).to(card)
-    bfu = torch.from_numpy((rng.standard_normal((300, 52, 20)) * 0.3).astype(np.float32)).to(card)
-    for cands in (bitalloc.reference_candidates(sf, 1.0), bitalloc.rdo_candidates(bfu, sf, 2.0)):
-        cands = cands.contiguous()
-        assert torch.equal(bitalloc_kernels.alloc_sweep(cands), bitalloc_kernels.alloc_sweep_plain(cands))
-    assert torch.equal(bitalloc.allocate_bits(sf, 0.7), bitalloc.allocate_bits(sf, 0.7, plain=True))
+@pytest.mark.parametrize("bias", [0.7, 1.0, 2.0])
+def test_allocators_on_the_card_equal_the_plain_path(card, bias):
+    bfu, sf = (torch.from_numpy(a).to(card) for a in testing.alloc_inputs("random", 300, 6))
+    assert torch.equal(bitalloc.allocate_bits_rdo(bfu, sf, bias), bitalloc.allocate_bits_rdo(bfu, sf, bias, plain=True))
+    assert torch.equal(bitalloc.allocate_bits(sf, bias), bitalloc.allocate_bits(sf, bias, plain=True))
 
 
 @pytest.mark.cuda
@@ -163,7 +163,7 @@ def test_file_transcodes_on_the_card_match_the_cpu_path(card, tmp_path):
     kernels.reset_launches()
     encode_file(src, aea_card, chunk_frames=256, device=card)
     decode_file(aea_card, str(tmp_path / "card.wav"), chunk_frames=256, device=card)
-    assert all(kernels.LAUNCHES[k] > 0 for k in ("alloc_sweep", "read_fields", "qmf_taps", "imdct_exact_256")), \
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("alloc_rdo", "read_fields", "qmf_taps", "imdct_exact_256")), \
         kernels.LAUNCHES
     encode_file(src, aea_cpu, chunk_frames=256, device="cpu")
     _, units = read_aea(aea_card)
@@ -187,9 +187,9 @@ def test_file_transcodes_on_the_card_match_the_cpu_path(card, tmp_path):
 @pytest.mark.parametrize(
     "call",
     [
-        lambda: bitalloc_kernels.alloc_sweep(torch.zeros(4, 780, dtype=torch.int64)),
-        lambda: bitalloc_kernels.alloc_sweep(torch.zeros(780, dtype=torch.int32)),
-        lambda: bitalloc_kernels.alloc_sweep(torch.zeros(780, 4, dtype=torch.int32).T),
+        lambda: bitalloc_kernels.alloc_rdo(torch.zeros(4, 52, 20), torch.zeros(4, 52, dtype=torch.int64), 1.0),
+        lambda: bitalloc_kernels.alloc_reference(torch.zeros(52, dtype=torch.int32), 1.0),
+        lambda: bitalloc_kernels.alloc_reference(torch.zeros(52, 4, dtype=torch.int32).T, 1.0),
         lambda: imdct_kernels.imdct_mid(torch.zeros(4, 32, dtype=torch.float64), 64),
         lambda: imdct_kernels.imdct_mid(torch.zeros(4, 33), 64),
         lambda: imdct_kernels.imdct_mid(torch.zeros(4, 64), 128),
