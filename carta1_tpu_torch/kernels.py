@@ -12,8 +12,10 @@ an add into one FMA, which would skip the product's rounding that the
 reference performs; the sources also spell every f64 operation as an
 explicit round-to-nearest intrinsic.  No fast-math flag is ever given.
 
-Every kernel wrapper calls `count(name)` once per launch, and nowhere
-else, so a run can show which kernels its main path went through.
+Every kernel wrapper launches through `launch`, which puts the kernel on
+its tensors' card whatever card is current, and calls `count(name)` once
+per launch and nowhere else, so a run can show which kernels its main path
+went through.
 `time_ms` times calls on the device's clock for the scripts that measure.
 """
 
@@ -147,8 +149,7 @@ def empty_launch(device: torch.device) -> None:
     fn = cdll.carta1_empty_launch
     if fn.argtypes is None:
         fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
-    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-    check(cdll, fn(stream), "empty_launch")
+    check(cdll, launch(fn, device), "empty_launch")
 
 
 SPIN_CYCLES = 80_000_000     # torch.cuda._sleep: about 40 ms at the H100's 1.98 GHz
@@ -177,8 +178,13 @@ def time_ms(fn, reps: int, warmup: int = 2) -> tuple[float, float]:
     return start.elapsed_time(end) / reps, host / reps * 1e3
 
 
-def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def launch(fn, device: torch.device, *args) -> int:
+    """Call the C launcher `fn(*args, stream)` on `device`'s current stream,
+    with `device` made the current card for the call: the CUDA runtime in
+    the library launches on the calling thread's current card, which need
+    not be the card the tensors are on.  Returns the launcher's error code."""
+    with torch.cuda.device(device):
+        return fn(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

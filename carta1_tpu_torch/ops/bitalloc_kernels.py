@@ -155,10 +155,10 @@ def alloc_rdo(bfu_data: torch.Tensor, sf_idx: torch.Tensor, allocation_bias: flo
     norm, step, weight, per_bit = _rdo_tables(float(allocation_bias), sf_idx.device)
     cost, specs = _step_tables(sf_idx.device)
     lib, fn, _ = _kernels()
-    err = fn(
+    err = kernels.launch(
+        fn, sf_idx.device,
         kernels.ptr(bfu_data), kernels.ptr(sf_idx), kernels.ptr(norm), kernels.ptr(step), kernels.ptr(weight),
         kernels.ptr(per_bit), kernels.ptr(cost), kernels.ptr(specs), kernels.ptr(out), sf_idx.shape[0], budget,
-        kernels.stream_handle(sf_idx),
     )
     kernels.check(lib, err, "alloc_rdo")
     kernels.count("alloc_rdo")
@@ -178,8 +178,8 @@ def alloc_reference(sf_idx: torch.Tensor, allocation_bias: float, budget: int = 
     rank = _bitalloc()._rank_table(float(allocation_bias), sf_idx.device)
     cost, _ = _step_tables(sf_idx.device)
     lib, _, fn = _kernels()
-    err = fn(kernels.ptr(sf_idx), kernels.ptr(rank), kernels.ptr(cost), kernels.ptr(out), sf_idx.shape[0], budget,
-             kernels.stream_handle(sf_idx))
+    err = kernels.launch(fn, sf_idx.device, kernels.ptr(sf_idx), kernels.ptr(rank), kernels.ptr(cost),
+                         kernels.ptr(out), sf_idx.shape[0], budget)
     kernels.check(lib, err, "alloc_reference")
     kernels.count("alloc_reference")
     return out

@@ -82,9 +82,10 @@ def read_fields(
     if out.numel() == 0:
         return out
     lib, fn = _kernel()
-    err = fn(
+    err = kernels.launch(
+        fn, offsets.device,
         kernels.ptr(win32), kernels.ptr(offsets), kernels.ptr(widths), kernels.ptr(out),
-        offsets.shape[0], offsets.shape[1], j_lo, j_hi, kernels.stream_handle(offsets),
+        offsets.shape[0], offsets.shape[1], j_lo, j_hi,
     )
     kernels.check(lib, err, "read_fields")
     kernels.count("read_fields")

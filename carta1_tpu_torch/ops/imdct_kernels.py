@@ -117,10 +117,11 @@ def imdct_mid(x: torch.Tensor, size: int) -> torch.Tensor:
     sincos, _, tw_re, tw_im = _tables(size, x.device)
     host = imdct_tables(size)           # cached: the arrays outlive the call that reads them
     lib, fn = _kernel()
-    err = fn(
+    err = kernels.launch(
+        fn, x.device,
         kernels.ptr(x), kernels.ptr(out), kernels.ptr(sincos), kernels.ptr(tw_re), kernels.ptr(tw_im),
         host[0].ctypes.data, host[2].ctypes.data, host[3].ctypes.data,
-        x.shape[0], size, kernels.stream_handle(x),
+        x.shape[0], size,
     )
     kernels.check(lib, err, f"imdct_exact_{size}")
     kernels.count(f"imdct_exact_{size}")

@@ -87,9 +87,8 @@ def qmf_taps(work: torch.Tensor) -> torch.Tensor:
     if work.shape[0] == 0 or s == 0:
         return out
     lib, fn = _kernel()
-    err = fn(
-        kernels.ptr(work), kernels.ptr(out), _TAPS.ctypes.data,
-        work.shape[0], s, kernels.stream_handle(work),
+    err = kernels.launch(
+        fn, work.device, kernels.ptr(work), kernels.ptr(out), _TAPS.ctypes.data, work.shape[0], s,
     )
     kernels.check(lib, err, "qmf_taps")
     kernels.count("qmf_taps")

@@ -16,6 +16,10 @@ result comes to the host one chunk late (`_Lag`), so the host writes chunk
 k while the card computes chunk k + 1.  With a checkpoint, the frame offset
 and the stream state are saved atomically every few chunks (in the JAX
 package's file format), and a killed run resumes byte-identically.
+With a `mesh` (a tuple of devices, `parallel.sharding`), each chunk's
+frames are split across it and the ordinary stream state is carried from
+chunk to chunk into shard 0, so a mesh run writes the same bytes and the
+same checkpoints as a run without one, and either resumes the other.
 `encode_clips` encodes many independent clips as one batch.
 """
 
@@ -38,6 +42,7 @@ from carta1_tpu_torch.io.streams import AeaStreamReader, AeaStreamWriter, Stream
 from carta1_tpu_torch.ops.bitpack import pack_frames, unpack_frames
 from carta1_tpu_torch.ops.pcm import float_to_int16, int16_to_float
 from carta1_tpu_torch.options import EncoderOptions
+from carta1_tpu_torch.parallel.sharding import decode_frames_sharded, encode_frames_sharded, make_mesh
 from carta1_tpu_torch.pipeline.decoder import decode_step, decoder_init_state
 from carta1_tpu_torch.pipeline.encoder import encode_step, encoder_init_state
 
@@ -149,6 +154,38 @@ def decode_units(
         dtype = torch.int16 if to_i16 else torch.float32
         return torch.zeros((len(channels), 0), dtype=dtype, device=dev)
     return torch.cat(outs, dim=1).reshape(len(channels), -1)
+
+
+def _encode_chunk_sharded(frames: torch.Tensor, options: EncoderOptions, state: dict | None, mesh: tuple):
+    """Encode one host chunk [C, n, 512] (raw int16 or f32) with its frames
+    split across `mesh`.  Returns (units uint8 [C, n, 212] on mesh[0], the
+    stream state after the chunk).
+
+    The JAX package (`carta1_tpu/processor.py` `_encode_chunk_sharded`)
+    carries the chunk's last two raw frames instead and re-encodes them as
+    a prefix; here the stream state itself is carried, as without a mesh."""
+    fd, state = encode_frames_sharded(frames, options, mesh, state)
+    return pack_frames(fd), state
+
+
+def _decode_chunk_sharded(units: torch.Tensor, state: dict | None, mesh: tuple):
+    """Decode one host chunk of units uint8 [C, n, 212]: unpacked on mesh[0]
+    (K3), its frames split across `mesh`.  Returns (int16 [C, n, 512] on
+    mesh[0], the stream state after the chunk)."""
+    fd = unpack_frames(units.to(mesh[0]))
+    pcm, state = decode_frames_sharded(fd, mesh, state)
+    profiling.nan_check("decoder PCM", pcm)
+    return float_to_int16(pcm), state
+
+
+def _placement(mesh, device, plain: bool) -> tuple[tuple | None, torch.device]:
+    """(the mesh or None, the device the chunks' results land on)."""
+    if mesh is None:
+        return None, resolve_device(device)
+    if device is not None or plain:
+        raise ValueError("a mesh run takes no `device` (its results land on the mesh's first device) and no `plain`")
+    mesh = make_mesh(mesh)
+    return mesh, mesh[0]
 
 
 @dataclasses.dataclass
@@ -272,6 +309,7 @@ def encode_file(
     timings: dict | None = None,
     device=None,
     plain: bool = False,
+    mesh=None,
 ) -> TranscodeResult:
     """Bounded-memory streaming encode: memmapped WAV in, incremental AEA out
     (bin/cli.js:165-354), on the card unless `device="cpu"`.
@@ -284,8 +322,17 @@ def encode_file(
     with the input's path and `chunk_frames`, and a killed run given the same
     ones resumes there with byte-identical output.  `timings`, if given, is
     filled with the wall-clock split (read_s, dispatch_s, drain_fetch_s,
-    write_s, n_drains, drain_bytes)."""
-    dev = resolve_device(device)
+    write_s, n_drains, drain_bytes).
+
+    `mesh` (a tuple of devices, see `parallel.sharding.make_mesh`) splits
+    each chunk's frames across its devices.  The stream state is carried
+    between chunks as without a mesh and handed to shard 0, so the
+    checkpoint has the same keys, a mesh run resumes without one and the
+    other way round, and the units equal those of a run without a mesh
+    (bitwise whenever the f32 encoder gives the same bits on the shards'
+    rows).  This departs from the JAX package, whose mesh runs carry and
+    checkpoint the last two raw frames instead."""
+    mesh, dev = _placement(mesh, device, plain)
     reader = WavStreamReader(input_wav)
     nch = reader.info.channels
     if nch not in (1, 2):
@@ -312,8 +359,11 @@ def encode_file(
         writer.append(units[0] if nch == 1 else aea.interleave_stereo(units[0], units[1]))
         lag.phases["write_s"] += time.perf_counter() - t
 
-    _run_chunks(chunks(), lambda x, st: _encode_batch_dev(x.to(dev), options, st, plain=plain), write, writer,
-                state, ckpt, checkpoint_every, meta, nch, nframes, on_progress, lag)
+    if mesh is None:
+        dispatch = lambda x, st: _encode_batch_dev(x.to(dev), options, st, plain=plain)  # noqa: E731
+    else:
+        dispatch = lambda x, st: _encode_chunk_sharded(x, options, st, mesh)  # noqa: E731
+    _run_chunks(chunks(), dispatch, write, writer, state, ckpt, checkpoint_every, meta, nch, nframes, on_progress, lag)
     _report(lag.phases, timings)
     if ckpt is not None:
         ckpt.remove()
@@ -331,12 +381,15 @@ def decode_file(
     timings: dict | None = None,
     device=None,
     plain: bool = False,
+    mesh=None,
 ) -> TranscodeResult:
     """Bounded-memory streaming decode (the mirror of `encode_file`): each
     chunk's units are uploaded, decoded bit-exactly and converted to int16
     on the device, and written to a 16-bit WAV.  An odd stereo unit count
-    gets a silent unit (processor.js:201-211)."""
-    dev = resolve_device(device)
+    gets a silent unit (processor.js:201-211).  `mesh` splits each chunk's
+    frames across its devices, as in `encode_file`; the WAV is byte-equal
+    to a run without one."""
+    mesh, dev = _placement(mesh, device, plain)
     reader = AeaStreamReader(input_aea)
     nch = reader.meta.channel_count
     if nch not in (1, 2):
@@ -364,8 +417,12 @@ def decode_file(
         writer.append_i16(pcm.reshape(nch, -1))
         lag.phases["write_s"] += time.perf_counter() - t
 
-    _run_chunks(chunks(), lambda x, st: _decode_batch_dev(x.to(dev), st, to_i16=True, plain=plain), write, writer,
-                state, ckpt, checkpoint_every, meta, nch, frames_per_ch, on_progress, lag)
+    if mesh is None:
+        dispatch = lambda x, st: _decode_batch_dev(x.to(dev), st, to_i16=True, plain=plain)  # noqa: E731
+    else:
+        dispatch = lambda x, st: _decode_chunk_sharded(x, st, mesh)  # noqa: E731
+    _run_chunks(chunks(), dispatch, write, writer, state, ckpt, checkpoint_every, meta, nch, frames_per_ch,
+                on_progress, lag)
     _report(lag.phases, timings)
     if ckpt is not None:
         ckpt.remove()

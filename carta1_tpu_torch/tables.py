@@ -1,7 +1,7 @@
 """Host float64 tables of the transforms and the quantizer.
 
 Copies of the gold engine's table builders (`carta1_tpu/gold/transforms.py`
-`_sincos_table`, `mdct_js`, `mdct_basis`; `carta1_tpu/gold/fftjs.py`
+`_sincos_table`, `mdct_js`, `imdct_js`, `mdct_basis`, `imdct_basis`; `carta1_tpu/gold/fftjs.py`
 `_bit_reverse_perm`, `_twiddles`, `fft_js`) and of the encoder tables of
 `carta1_tpu/ops/tables.py`, built by the same code so that each value is
 the same word, plus the packed per-size layout the IMDCT kernel reads.
@@ -157,6 +157,50 @@ def mdct_basis(size: int) -> np.ndarray:
     return _mdct_f64(np.eye(size, dtype=np.float64), size, MDCT_SCALES[size])
 
 
+def _imdct_f64(x: np.ndarray, size: int, scale: float) -> np.ndarray:
+    """Inverse MDCT (mdct.js:139-211) on f64 input: [..., size/2] -> [..., size]."""
+    half, quarter = size >> 1, size >> 2
+    fft_size = half >> 1
+    n34 = 3 * quarter
+    tbl = _sincos_table(size, scale)
+
+    i = np.arange(fft_size)
+    i2 = i * 2
+    r = -x[..., i2]
+    s_ = -x[..., half - 1 - i2]
+    c, s = tbl[i2], tbl[i2 + 1]
+    re, im = _fft_f64(s_ * s + r * c, s_ * c - r * s)
+
+    out = np.zeros(x.shape[:-1] + (size,), dtype=np.float64)
+    i = np.arange(fft_size // 2)
+    i2 = i * 2
+    c, s = tbl[i2], tbl[i2 + 1]
+    r1 = re[..., i] * c + im[..., i] * s
+    i1 = re[..., i] * s - im[..., i] * c
+    out[..., n34 - 1 - i2] = r1
+    out[..., n34 + i2] = r1
+    out[..., quarter + i2] = i1
+    out[..., quarter - 1 - i2] = -i1
+
+    i = np.arange(fft_size // 2, fft_size)
+    idx = (i - fft_size // 2) * 2 + quarter
+    i2 = i * 2
+    c, s = tbl[i2], tbl[i2 + 1]
+    r1 = re[..., i] * c + im[..., i] * s
+    i1 = re[..., i] * s - im[..., i] * c
+    out[..., n34 - 1 - idx] = r1
+    out[..., idx - quarter] = -r1
+    out[..., quarter + idx] = i1
+    out[..., 5 * quarter - 1 - idx] = i1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def imdct_basis(size: int) -> np.ndarray:
+    """Exact f64 inverse-MDCT matrix [size/2, size]: out = x @ imdct_basis(size)."""
+    return _imdct_f64(np.eye(size >> 1, dtype=np.float64), size, IMDCT_SCALES[size])
+
+
 def _f32(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float64).astype(np.float32)
 
@@ -196,6 +240,23 @@ def encoder_mdct_tables() -> dict[str, np.ndarray]:
     smain = w_down[:, None] * b64[32:]
     out["short_ov"], out["short_main"] = _f32(sov), _f32(smain)
     out["short_ov_rev"], out["short_main_rev"] = _f32(sov[:, ::-1]), _f32(smain[:, ::-1])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def decoder_imdct_tables() -> dict[str, np.ndarray]:
+    """IMDCT matrices of the fast decoder, f32, giving directly the middle
+    half the decoder keeps (decoder.js:190-199: inv[size/2 : size/2 + size]
+    of a 2*size transform), with the mid/high spectral reversal folded in
+    as a row flip: long{b} [size, size], short / short_rev [32, 32]."""
+    out = {}
+    for band in range(3):
+        size = C.MDCT_BAND_SIZES[band]
+        mid = imdct_basis(2 * size)[:, size // 2: size // 2 + size]
+        out[f"long{band}"] = _f32(mid[::-1] if band > 0 else mid)
+    b64 = imdct_basis(64)
+    out["short"] = _f32(b64[:, 16:48])
+    out["short_rev"] = _f32(b64[::-1, 16:48])
     return out
 
 

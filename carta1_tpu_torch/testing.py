@@ -352,6 +352,30 @@ def scale_factor_faults(got: np.ndarray, want: np.ndarray, peaks: np.ndarray, at
     return int(((got != want) & ~excused).sum())
 
 
+def backend_agreement(got: dict, want: dict, peaks: np.ndarray, min_equal: float = 0.99) -> dict:
+    """Two encodes of the same frames by the port, one of them (partly) on
+    the CPU and the other on the card (fields as NumPy arrays [..., F, ...],
+    with the BFU peaks f32 [..., F, 52] of `want`'s analysis).  The f32
+    coefficients of the two backends differ in their last bits, so the
+    allocator breaks some near ties the other way and a scale factor may
+    round across a table value (phase 5 of chip_smoke.py measures it on the
+    six signal classes; on an H100 at least 0.9986 of the word lengths and
+    0.9995 of the quantized values were equal).  Raises AssertionError unless block modes
+    are equal, scale factors differ only where `scale_factor_faults`
+    excuses them, and at least `min_equal` of the word lengths and of the
+    quantized values are equal.  Returns the shares equal."""
+    if not np.array_equal(got["block_modes"], want["block_modes"]):
+        raise AssertionError("block modes differ between the backends")
+    faults = scale_factor_faults(got["scale_factors"], want["scale_factors"], peaks)
+    out = {"scale_factor_faults": faults,
+           "scale_factors_differing": int((got["scale_factors"] != want["scale_factors"]).sum()),
+           "word_lengths_equal": float((got["word_lengths"] == want["word_lengths"]).mean()),
+           "quantized_equal": float((got["quantized"] == want["quantized"]).mean())}
+    if faults or out["word_lengths_equal"] < min_equal or out["quantized_equal"] < min_equal:
+        raise AssertionError(f"the two backends' encodes disagree beyond rounding: {out}")
+    return out
+
+
 def signals(seconds: float = 3.0) -> dict[str, np.ndarray]:
     """The six signal classes of the encode-quality report
     (`quality_report.py` `signals`), f32 in [-1, 1], regenerated from their seed."""

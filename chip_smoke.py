@@ -46,8 +46,24 @@ Phases (each raises on failure; nothing is caught):
      --encode/--decode (byte-identical) and --json (equal to the CPU's dump),
      encode_clips against encode_pcm per clip (at most 1% of bytes differ),
      and the file walls (a first run and three repeats) and their split
-     beside phase 6's in-memory walls.
-     Its files go under build/ and are deleted at the end.
+     beside phase 6's in-memory walls;
+ 10. the last entry points, on a mesh of two shards on cuda:0 (and on every
+     card when there are more than one): (a) phase 6's stream through
+     encode_frames_sharded -> pack -> unpack -> decode_frames_sharded, chunk
+     by chunk with both states carried (units equal to phase 6's or inside
+     the JAX package's sharded-encode envelope, int16 equal to phase 6's;
+     launch counters reset just before and read just after, every kernel of
+     phase 6's path must have launched); (b) encode_file / decode_file with
+     the mesh, bytes equal to phase 9's files, killed and resumed with and
+     without the mesh; (c) the fast decoder within one int16 step of the
+     golden fixture (fewer than 1% of samples off) and of phase 6's exact
+     int16; (d) encode_stream / decode_stream equal to encode_pcm /
+     decode_units; (e) transcode_corpus over 8 stereo WAVs of 4096 frames
+     and a broken file (outputs equal to each file alone, the broken one
+     failed with no output, a resumed run skips the 8) and two gloo
+     processes of `python -m carta1_tpu_torch.parallel.multihost` on cuda:0
+     (disjoint, complete); walls and the corpus's realtime multiple.
+     Phases 9 and 10 write under build/ and delete it at the end.
 
 The last lines are a JSON `kernels` line, the card's name and power limit,
 and the result line.  The full record (every timing, the profile) goes to
@@ -240,7 +256,6 @@ def files_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, optio
             t0 = time.perf_counter()
             run(src, out, chunk_frames=CHUNK, timings=split)
             repeats[part].append((time.perf_counter() - t0, split))
-    shutil.rmtree(work)
     cf = nch * nframes
     med = {part: sorted(r, key=lambda x: x[0])[1] for part, r in repeats.items()}
     print(f"files: encode_file of {nframes} x {nch} frames (a {wav_size}-byte WAV) {enc_wall:.4f} s first, repeats "
@@ -259,6 +274,359 @@ def files_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, optio
             "in_memory_seconds": {"encode": walls["encode"], "decode": walls["decode"]},
             "timings": timings, "repeat_timings": {p: [t for _, t in r] for p, r in repeats.items()},
             "launches": launches, "encode_clips_differing_bytes": diff, "card": smi}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, dev: torch.device):
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return time.perf_counter() - t0, out
+
+
+HAND_NAMES = ("imdct", "qmf_taps", "read_fields", "alloc_rdo", "alloc_reference")
+
+
+def _profile(fn) -> dict:
+    """Where fn()'s time goes on the card, by torch.profiler: device busy ms,
+    device launches, the top device rows and the hand kernels' times."""
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # device-side rows (kernels, copies) count each device interval once;
+    # host-side rows attribute that time to the operation that launched it
+    dev_rows = sorted(([e.key, e.count, e.self_device_time_total / 1e3] for e in events
+                       if e.device_type == cuda), key=lambda r: -r[2])
+    ops = sorted(([e.key, e.count, e.self_device_time_total / 1e3] for e in events
+                  if e.device_type != cuda and e.self_device_time_total > 0), key=lambda o: -o[2])
+    host = sorted(([e.key, e.count, e.self_cpu_time_total / 1e3] for e in events if e.device_type != cuda),
+                  key=lambda o: -o[2])
+    return {"device_ms": sum(r[2] for r in dev_rows), "device_launches": sum(r[1] for r in dev_rows),
+            "host_ops_profiled": [{"name": k, "count": c, "self_cpu_ms": ms} for k, c, ms in host[:25]],
+            "hand_kernels": [{"name": k.replace("(anonymous namespace)::", "").split("(")[0], "count": c,
+                              "device_ms": ms} for k, c, ms in dev_rows if any(w in k for w in HAND_NAMES)],
+            "ops": [{"name": k, "count": c, "self_device_ms": ms} for k, c, ms in ops[:30]],
+            "device_rows": dev_rows[:30]}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _field_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Units uint8 [..., 212] against units: the JAX package's sharded-encode
+    envelope (tests/test_sharding.py) on their fields: block modes and scale
+    factors equal, quantized values at most 1 apart in fewer than 1e-3."""
+    from carta1_tpu_torch.ops.bitpack import unpack_frames
+
+    a, b = unpack_frames(got.reshape(-1, 212)), unpack_frames(want.reshape(-1, 212))
+    q = (a.quantized.long() - b.quantized.long()).abs()
+    out = {"unit_bytes_differing": int((got != want).sum()),
+           "fields_differing": {k: int((getattr(a, k) != getattr(b, k)).sum()) for k in a.fields()},
+           "quantized_max_diff": int(q.max()), "quantized_share_differing": float((q != 0).double().mean())}
+    if (out["fields_differing"]["block_modes"] or out["fields_differing"]["scale_factors"]
+            or out["quantized_max_diff"] > 1 or out["quantized_share_differing"] >= 1e-3):
+        raise AssertionError(f"sharded encode outside the JAX package's envelope: {out}")
+    return out
+
+
+def sharded_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, options, walls: dict, work: str,
+                  golden_units: np.ndarray, golden: np.ndarray, dev: torch.device, chunk: int = CHUNK) -> dict:
+    """Phase 10: phase 6's stream ([2, F, 512] int16; its units and int16 on
+    `dev`) through the sharded, corpus, fast-decode and stream entry points,
+    on a mesh of two shards on `dev` (and, for the sharded transcode, on a
+    mesh of `dev` and the CPU); phase 9's files in `work`."""
+    from carta1_tpu_torch import constants as C
+    from carta1_tpu_torch import (decode_file, decode_frames, decode_frames_sharded, decode_units, encode_file,
+                                  encode_frames_sharded, encode_pcm, encoder_init_state, kernels, make_mesh, testing,
+                                  transcode_corpus)
+    from carta1_tpu_torch.io.aea import interleave_stereo
+    from carta1_tpu_torch.io.wav import write_wav
+    from carta1_tpu_torch.ops.bitpack import pack_frames, unpack_frames
+    from carta1_tpu_torch.ops.pcm import float_to_int16, int16_to_float
+    from carta1_tpu_torch.pipeline.encoder import analysis_step
+    from carta1_tpu_torch.pipeline.streaming import chunk_frames_array, decode_stream, encode_stream
+
+    nch, nframes = pcm16.shape[:2]
+    chunks = nframes // chunk
+    rec: dict = {}
+
+    def upload(k: int) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(pcm16[:, k * chunk:(k + 1) * chunk])).to(dev)
+
+    # 10a. the sharded transcode, chunk by chunk, both states carried
+    def transcode(mesh, n: int = chunks):
+        est = dst = None
+        units_out, pcm_out = [], []
+        for k in range(n):
+            fd, est = encode_frames_sharded(upload(k), options, mesh, est)
+            u = pack_frames(fd)
+            out, dst = decode_frames_sharded(unpack_frames(u), mesh, dst)
+            units_out.append(u)
+            pcm_out.append(float_to_int16(out))
+        return torch.cat(units_out, dim=1), torch.cat(pcm_out, dim=1)
+
+    meshes = {"two shards on one card": make_mesh((dev, dev))}
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        meshes["every card"] = make_mesh()
+    rec["sharded"] = {}
+    for label, mesh in meshes.items():
+        transcode(mesh, 1)                                                 # warm
+        _sync(dev)
+        kernels.reset_launches()
+        wall, (s_units, s_pcm) = _timed(lambda: transcode(mesh), dev)
+        launches = dict(kernels.LAUNCHES)
+        missing = [k for k, v in launches.items() if v == 0 and k not in PATHS]
+        if dev.type == "cuda" and missing:
+            raise AssertionError(f"sharded transcode ({label}) launched no {missing}: {launches}")
+        diff = _field_diff(s_units, units)
+        if diff["unit_bytes_differing"] == 0:
+            if _mismatch(s_pcm, pcm)[0]:
+                raise AssertionError(f"sharded transcode ({label}): int16 differs from phase 6's on equal units")
+        else:                                                              # decode phase 6's own units
+            dst, outs = None, []
+            for k in range(chunks):
+                out, dst = decode_frames_sharded(unpack_frames(units[:, k * chunk:(k + 1) * chunk]), mesh, dst)
+                outs.append(float_to_int16(out))
+            if _mismatch(torch.cat(outs, dim=1), pcm)[0]:
+                raise AssertionError(f"sharded decode ({label}): int16 differs from phase 6's")
+        repeats = [_timed(lambda: transcode(mesh), dev)[0] for _ in range(3)]
+        per_chunk = sorted(repeats)[1] / chunks * 1e3
+        prof = _profile(lambda: transcode(mesh, 1))
+        rec["sharded"][label] = {"mesh": [str(d) for d in mesh], "seconds": wall, "repeat_seconds": repeats,
+                                 "ms_per_chunk": per_chunk, "launches": launches, "profile_one_chunk": prof, **diff}
+        print(f"sharded transcode ({label}, mesh {[str(d) for d in mesh]}): {chunks} x {chunk} stereo frames in "
+              f"{wall:.4f} s, repeats {', '.join(f'{r:.4f}' for r in repeats)} s = {per_chunk:.3f} ms per chunk "
+              f"(phase 6: {walls['transcode'] / chunks * 1e3:.3f}); one chunk under the profiler: device busy "
+              f"{prof['device_ms']} ms in {prof['device_launches']} launches; units against phase 6's: "
+              f"{diff['unit_bytes_differing']} bytes and {diff['fields_differing']} fields differ; int16 equal to "
+              f"phase 6's; launches {launches}")
+    if len(meshes) == 1:
+        print("sharded transcode: one card visible, so no mesh over every card")
+
+    # the path of a mesh over several devices (halos and results copied
+    # between devices, shards gathered out of order) on a one-card host:
+    # shards 0 and 2 on the card, shard 1 on the CPU with the plain
+    # versions; two chunks (8192 frames on 3 shards: padded, so ragged),
+    # both states carried, once
+    mixed = make_mesh((dev, "cpu", dev))
+    n_mixed = 2
+    _sync(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    est, m_units = None, []
+    for k in range(n_mixed):
+        fd, est = encode_frames_sharded(upload(k), options, mixed, est)
+        m_units.append(pack_frames(fd))
+    dst, m_pcm = None, []
+    for k in range(n_mixed):
+        out, dst = decode_frames_sharded(unpack_frames(units[:, k * chunk:(k + 1) * chunk]), mixed, dst)
+        m_pcm.append(float_to_int16(out))
+    _sync(dev)
+    m_wall = time.perf_counter() - t0
+    m_launches = dict(kernels.LAUNCHES)
+    missing = [k for k, v in m_launches.items() if v == 0 and k not in PATHS]
+    if missing:
+        raise AssertionError(f"sharded transcode (card and CPU) launched no {missing}: {m_launches}")
+    if _mismatch(torch.cat(m_pcm, dim=1), pcm[:, :n_mixed * chunk])[0]:
+        raise AssertionError("sharded decode (card and CPU): int16 differs from phase 6's")
+    ast, peaks = encoder_init_state(dev, nch), []
+    mask = torch.from_numpy(C.BFU_SLOT_MASK).to(dev)
+    for k in range(n_mixed):
+        bfu, _, _, ast = analysis_step(int16_to_float(upload(k)), ast, options.band_thresholds)
+        peaks.append(torch.where(mask, bfu.abs(), 0.0).amax(dim=-1))
+    fields = [unpack_frames(u.reshape(-1, 212)) for u in (torch.cat(m_units, dim=1), units[:, :n_mixed * chunk])]
+    agree = testing.backend_agreement(*({k: getattr(f, k).cpu().numpy() for k in f.fields()} for f in fields),
+                                      torch.cat(peaks, dim=1).reshape(-1, 52).cpu().numpy())
+    rec["sharded"]["card and CPU"] = {"mesh": [str(d) for d in mixed], "chunks": n_mixed, "seconds": m_wall,
+                                      "launches": m_launches, **agree}
+    print(f"sharded transcode (card and CPU, mesh {[str(d) for d in mixed]}): {n_mixed} x {chunk} stereo frames "
+          f"encoded and phase 6's units decoded in {m_wall:.4f} s (the CPU shard on the plain versions); int16 "
+          f"equal to phase 6's; units against phase 6's (CPU rows against card rows): {agree}; launches {m_launches}")
+    del m_units, m_pcm, fields, peaks
+    launches_sharded = rec["sharded"]["two shards on one card"]["launches"]
+
+    # 10b. the sharded file paths against phase 9's files, killed and resumed
+    mesh = meshes["two shards on one card"]
+    p = {k: os.path.join(work, k) for k in ("in.wav", "out.aea", "out.wav", "mesh.aea", "mesh.wav", "ck.npz",
+                                            "r.aea", "r.wav")}
+    aea_bytes, wav_bytes = _read(p["out.aea"]), _read(p["out.wav"])
+    _sync(dev)
+    kernels.reset_launches()
+    enc_wall, _ = _timed(lambda: encode_file(p["in.wav"], p["mesh.aea"], options, title="smoke", chunk_frames=chunk,
+                                             mesh=mesh), dev)
+    dec_wall, _ = _timed(lambda: decode_file(p["out.aea"], p["mesh.wav"], chunk_frames=chunk, mesh=mesh), dev)
+    file_launches = dict(kernels.LAUNCHES)
+    if _read(p["mesh.aea"]) != aea_bytes or _read(p["mesh.wav"]) != wav_bytes:
+        raise AssertionError("sharded files: encode_file / decode_file with a mesh differ from phase 9's files")
+    place = {"mesh": {"mesh": mesh}, "none": {"device": dev}}
+    for run, src, out, ref, killed, resumed in (
+            (encode_file, p["in.wav"], p["r.aea"], aea_bytes, "mesh", "mesh"),
+            (encode_file, p["in.wav"], p["r.aea"], aea_bytes, "mesh", "none"),
+            (decode_file, p["out.aea"], p["r.wav"], wav_bytes, "mesh", "mesh"),
+            (decode_file, p["out.aea"], p["r.wav"], wav_bytes, "none", "mesh")):
+        kw = dict(chunk_frames=chunk, checkpoint=p["ck.npz"], checkpoint_every=1)
+        if run is encode_file:
+            kw.update(options=options, title="smoke")
+        try:
+            run(src, out, on_progress=_KillAfter(2), **kw, **place[killed])
+        except KeyboardInterrupt:
+            pass
+        else:
+            raise AssertionError("sharded files: the simulated kill did not happen")
+        run(src, out, **kw, **place[resumed])
+        if os.path.exists(p["ck.npz"]) or _read(out) != ref:
+            raise AssertionError(f"sharded files: {run.__name__} killed ({killed}) and resumed ({resumed}) differs")
+    rec["files"] = {"encode_file_seconds": enc_wall, "decode_file_seconds": dec_wall, "launches": file_launches}
+    print(f"sharded files: encode_file {enc_wall:.4f} s and decode_file {dec_wall:.4f} s with mesh "
+          f"{[str(d) for d in mesh]}, bytes equal to phase 9's; killed and resumed mesh -> mesh, mesh -> none "
+          f"(encode) and none -> mesh (decode) byte-identical; launches {file_launches}")
+
+    # 10c. the fast decoder: the golden fixture, then phase 6's units
+    g_pcm, _ = decode_frames(unpack_frames(torch.tensor(golden_units, device=dev)), device=dev, fast=True)
+    g_diff = np.abs(float_to_int16(g_pcm).cpu().numpy().reshape(-1).astype(np.int64) - golden)
+    if g_diff.max() > 1 or (g_diff != 0).mean() >= 0.01:
+        raise AssertionError(f"fast decode of the golden fixture: {int(g_diff.max())} LSB at most, "
+                             f"{(g_diff != 0).mean():.4f} of samples differ")
+
+    def fast_decode():
+        st, outs = None, []
+        for k in range(chunks):
+            out, st = decode_frames(unpack_frames(units[:, k * chunk:(k + 1) * chunk]), st, device=dev, fast=True)
+            outs.append(float_to_int16(out))
+        return torch.cat(outs, dim=1)
+
+    fast_decode()
+    fast_pcm = fast_decode()
+    f_diff = (fast_pcm.long() - pcm.long()).abs()
+    if int(f_diff.max()) > 1:
+        raise AssertionError(f"fast decode of phase 6's units: {int(f_diff.max())} int16 steps from the exact decode")
+    fast_repeats = [_timed(fast_decode, dev)[0] for _ in range(3)]
+    fast_ms = sorted(fast_repeats)[1] / chunks * 1e3
+    fast_prof = _profile(
+        lambda: float_to_int16(decode_frames(unpack_frames(units[:, :chunk]), device=dev, fast=True)[0]))
+    rec["fast_decode"] = {"golden_max_lsb": int(g_diff.max()), "golden_share_differing": float((g_diff != 0).mean()),
+                          "stream_max_lsb": int(f_diff.max()),
+                          "stream_share_differing": float((f_diff != 0).double().mean()),
+                          "repeat_seconds": fast_repeats, "ms_per_chunk": fast_ms, "profile_one_chunk": fast_prof,
+                          "exact_ms_per_chunk": walls["decode"] / chunks * 1e3}
+    print(f"fast decode: golden fixture within {int(g_diff.max())} LSB, {(g_diff != 0).mean():.5f} of samples differ; "
+          f"phase 6's units within {int(f_diff.max())} LSB of the exact decode, "
+          f"{rec['fast_decode']['stream_share_differing']:.5f} differ; {fast_ms:.3f} ms per stereo chunk (repeats "
+          f"{', '.join(f'{r:.4f}' for r in fast_repeats)} s) against the exact decode's "
+          f"{walls['decode'] / chunks * 1e3:.3f}; one chunk under the profiler: device busy "
+          f"{fast_prof['device_ms']} ms in {fast_prof['device_launches']} launches")
+    del g_pcm, fast_pcm, f_diff
+
+    # 10d. the streams against encode_pcm / decode_units with the same chunk size
+    stream_chunks, _ = chunk_frames_array(pcm16, chunk)                       # [chunks, 2, chunk, 512] int16
+    enc_s, (fds, _) = _timed(lambda: encode_stream(stream_chunks, options, device=dev), dev)
+    s_units = pack_frames(fds).transpose(0, 1).reshape(nch, nframes, 212).cpu().numpy()
+    want_units = encode_pcm(pcm16.reshape(nch, -1), options, device=dev, chunk_frames=chunk)
+    if not np.array_equal(interleave_stereo(s_units[0], s_units[1]), want_units):
+        raise AssertionError("encode_stream: units differ from encode_pcm's")
+    dec_s, (s_pcm, _) = _timed(lambda: decode_stream(fds, device=dev), dev)
+    got = float_to_int16(s_pcm).transpose(0, 1).reshape(nch, -1)
+    if _mismatch(got, decode_units(want_units, nch, device=dev, chunk_frames=chunk, to_i16=True))[0]:
+        raise AssertionError("decode_stream: int16 differs from decode_units'")
+    rec["streams"] = {"encode_stream_seconds": enc_s, "decode_stream_seconds": dec_s}
+    print(f"streams: encode_stream {enc_s:.4f} s, decode_stream {dec_s:.4f} s over {chunks} x {chunk} stereo frames; "
+          "units equal to encode_pcm's, int16 equal to decode_units'")
+    del fds, s_pcm, got
+
+    # 10e. the corpus: 8 stereo WAVs of a half chunk each and one file that is no WAV
+    cdir = os.path.join(work, "corpus")
+    out_dir, alone = os.path.join(cdir, "out"), os.path.join(cdir, "alone")
+    for d in (cdir, out_dir, alone):
+        os.makedirs(d, exist_ok=True)
+    part = chunk // 2
+    wavs = []
+    for i in range(min(8, nframes // part)):
+        wavs.append(os.path.join(cdir, f"part{i}.wav"))
+        write_wav(wavs[-1], np.ascontiguousarray(pcm16[:, i * part:(i + 1) * part]).reshape(nch, -1))
+    broken = os.path.join(cdir, "broken.wav")
+    with open(broken, "wb") as f:
+        f.write(b"this is no RIFF file")
+    jobs = [(w, os.path.join(out_dir, os.path.basename(w)[:-4] + ".aea")) for w in wavs + [broken]]
+    ck = os.path.join(cdir, "ck.json")
+    place = {} if dev.type == "cuda" else {"device": dev}
+    enc = transcode_corpus(jobs, options=options, chunk_frames=chunk, checkpoint_path=ck, **place)
+    if enc.completed != wavs or list(enc.failed) != [broken] or os.path.exists(jobs[-1][1]):
+        raise AssertionError(f"corpus encode: completed {enc.completed}, failed {list(enc.failed)}")
+    djobs = [(o, o[:-4] + ".wav") for _, o in jobs[:-1]]
+    dec = transcode_corpus(djobs, mode="decode", chunk_frames=chunk, **place)
+    if len(dec.completed) != len(wavs) or dec.failed:
+        raise AssertionError(f"corpus decode: completed {dec.completed}, failed {list(dec.failed)}")
+    for (w, o), (_, d) in zip(jobs, djobs):
+        encode_file(w, os.path.join(alone, "a.aea"), options, title=os.path.basename(o)[:-4], chunk_frames=chunk,
+                    device=dev)
+        decode_file(o, os.path.join(alone, "a.wav"), chunk_frames=chunk, device=dev)
+        if _read(o) != _read(os.path.join(alone, "a.aea")) or _read(d) != _read(os.path.join(alone, "a.wav")):
+            raise AssertionError(f"corpus: the outputs of {w} differ from encode_file / decode_file of it alone")
+    again = transcode_corpus(jobs, options=options, chunk_frames=chunk, checkpoint_path=ck, **place)
+    if again.skipped != wavs or again.completed or list(again.failed) != [broken]:
+        raise AssertionError(f"corpus resume: skipped {again.skipped}, completed {again.completed}")
+
+    # two processes of the launcher, gloo, both on the same device
+    mh_out, mh_ck = os.path.join(cdir, "mh"), os.path.join(cdir, "mh.json")
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "LOCAL_RANK")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join([root] + [x for x in env.get("PYTHONPATH", "").split(os.pathsep) if x])
+    port = _free_port()
+    mh_dev = "cuda:0" if dev.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "carta1_tpu_torch.parallel.multihost", "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", "2", "--process-id", str(pid), "--encode", os.path.join(cdir, "part*.wav"),
+         "--out-dir", mh_out, "--checkpoint", mh_ck, "--device", mh_dev],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    lines = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"multihost process exited {proc.returncode}: {err[-3000:]}")
+            lines.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    mh_wall = time.perf_counter() - t0
+    done = []
+    for pid in range(2):
+        with open(f"{mh_ck}.p{pid}") as f:
+            done.append(set(json.load(f)["done"]))
+    if (sorted(x["process"] for x in lines) != [0, 1] or any(x["processes"] != 2 or x["failed"] for x in lines)
+            or not done[0].isdisjoint(done[1]) or done[0] | done[1] != set(wavs)):
+        raise AssertionError(f"multihost: {lines}, checkpoints {done}")
+    for w, o in jobs[:-1]:
+        if _read(os.path.join(mh_out, os.path.basename(o))) != _read(o):
+            raise AssertionError(f"multihost: the output of {w} differs from the corpus transcoder's")
+    rec["corpus"] = {"files": len(wavs), "frames_per_file": part, "encode_seconds": enc.elapsed,
+                     "encode_realtime_multiple": enc.realtime_multiple, "decode_seconds": dec.elapsed,
+                     "decode_realtime_multiple": dec.realtime_multiple, "multihost": lines,
+                     "multihost_wall_seconds": mh_wall, "multihost_split": [len(d) for d in done]}
+    print(f"corpus: {len(wavs)} stereo WAVs of {part} frames ({os.path.getsize(wavs[0])} bytes each) and one broken "
+          f"file: encode {enc.elapsed:.4f} s = {enc.realtime_multiple:.1f}x realtime, decode {dec.elapsed:.4f} s = "
+          f"{dec.realtime_multiple:.1f}x realtime; outputs equal to each file alone; the broken file failed and left "
+          f"no output; a second run skipped {len(again.skipped)}; multihost (2 gloo processes on {mh_dev}, "
+          f"{mh_wall:.2f} s wall with start-up) split {[len(d) for d in done]}, disjoint and complete, "
+          f"realtime multiples {[x['realtime_multiple'] for x in lines]}")
+    rec["launches_sharded"] = launches_sharded
+    return rec
 
 
 def main() -> int:
@@ -525,11 +893,7 @@ def main() -> int:
         return torch.cat(units_out, dim=1), torch.cat(pcm_out, dim=1)
 
     def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
+        return _timed(fn, dev)
 
     transcode(chunks=1)                                               # warm the tables
     torch.cuda.synchronize()
@@ -631,32 +995,8 @@ def main() -> int:
 
     # 8. where one chunk's time goes: device time by operation (torch.profiler),
     # the encode and the decode of the stream's first chunk apart
-    cuda = torch.autograd.DeviceType.CUDA
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    hand_names = ("imdct", "qmf_taps", "read_fields", "alloc_rdo", "alloc_reference")
-
-    def profile(fn) -> dict:
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        # device-side rows (kernels, copies) count each device interval once;
-        # host-side rows attribute that time to the operation that launched it
-        dev_rows = sorted(([e.key, e.count, e.self_device_time_total / 1e3] for e in events
-                           if e.device_type == cuda), key=lambda r: -r[2])
-        ops = sorted(([e.key, e.count, e.self_device_time_total / 1e3] for e in events
-                      if e.device_type != cuda and e.self_device_time_total > 0), key=lambda o: -o[2])
-        host = sorted(([e.key, e.count, e.self_cpu_time_total / 1e3] for e in events if e.device_type != cuda),
-                      key=lambda o: -o[2])
-        return {"device_ms": sum(r[2] for r in dev_rows), "device_launches": sum(r[1] for r in dev_rows),
-                "host_ops_profiled": [{"name": k, "count": c, "self_cpu_ms": ms} for k, c, ms in host[:25]],
-                "hand_kernels": [{"name": k.replace("(anonymous namespace)::", "").split("(")[0], "count": c,
-                                  "device_ms": ms} for k, c, ms in dev_rows if any(w in k for w in hand_names)],
-                "ops": [{"name": k, "count": c, "self_device_ms": ms} for k, c, ms in ops[:30]],
-                "device_rows": dev_rows[:30]}
-
-    prof_enc = profile(lambda: _encode_batch_dev(upload(0), options, None))
-    prof_dec = profile(lambda: _decode_batch_dev(chunk, None, to_i16=True))
+    prof_enc = _profile(lambda: _encode_batch_dev(upload(0), options, None))
+    prof_dec = _profile(lambda: _decode_batch_dev(chunk, None, to_i16=True))
     walls = {"transcode": sorted(repeats)[1], "encode": sorted(enc_repeats)[1], "decode": sorted(dec_repeats)[1]}
     for part, prof in (("encode", prof_enc), ("decode", prof_dec)):
         chunk_ms = walls[part] / CHUNKS * 1e3                          # median repeat
@@ -680,6 +1020,15 @@ def main() -> int:
     record["files"] = files_phase(pcm16, units, pcm, options, smi, walls, os.path.join(fixtures, "golden.aea"))
     for row in rows:
         row["launches_files"] = record["files"]["launches"][row["name"]]
+
+    # 10. the sharded paths, the fast decoder, the streams and the corpus
+    t10 = time.perf_counter()
+    record["phase10"] = sharded_phase(pcm16, units, pcm, options, walls, os.path.join("build", "chip_smoke_files"),
+                                      golden_units, golden, dev)
+    shutil.rmtree(os.path.join("build", "chip_smoke_files"))
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    for row in rows:
+        row["launches_sharded"] = record["phase10"]["launches_sharded"][row["name"]]
 
     record["kernels"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -184,6 +184,62 @@ def test_file_transcodes_on_the_card_match_the_cpu_path(card, tmp_path):
     assert open(resumed, "rb").read() == card_wav
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("devices", [("cuda:0", "cuda:0"), ("cuda:0", "cpu", "cuda:0")], ids=["one_card", "two_groups"])
+def test_sharded_decode_on_the_card_equals_unsharded(card, devices):
+    """Frames split over the mesh: bitwise the unsharded decode on the card,
+    with the state carried across two ragged chunks; the sharded encode
+    inside the JAX envelope of the unsharded one, and the kernels launched.
+    ("cuda:0", "cpu", "cuda:0") is a mesh of two devices, shards 0 and 2 on
+    the card and shard 1 on the CPU: the path of a mesh over several cards
+    (cross-device halos and gather).  Its CPU shard encodes with the plain
+    versions, so its encode is held to the backends' agreement instead."""
+    from carta1_tpu_torch import decode_frames, decode_frames_sharded, encode_frames_sharded, make_mesh
+    from carta1_tpu_torch import constants as C
+    from carta1_tpu_torch import encoder_init_state
+    from carta1_tpu_torch.pipeline.encoder import analysis_step
+
+    mesh = make_mesh(devices)
+    _, units = read_aea(os.path.join(FIXTURES, "golden.aea"))
+    fd = bitpack.unpack_frames(torch.from_numpy(np.stack([units, units[::-1]])).to(card))    # [2, 87]
+    want, want_st = decode_frames(fd, device=card)
+    kernels.reset_launches()
+    a, st = decode_frames_sharded(fd[:, :50], mesh)
+    b, st = decode_frames_sharded(fd[:, 50:], mesh, st)
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("qmf_taps", "imdct_exact_256", "imdct_exact_512")), kernels.LAUNCHES
+    assert a.device == mesh[0] and _same_bits(torch.cat([a, b], dim=1), want)
+    assert all(st[k].device == mesh[0] and _same_bits(st[k], want_st[k]) for k in want_st)
+
+    pcm = torch.from_numpy(testing.synth_audio(300, 2).reshape(2, 300, 512)).to(card)
+    kernels.reset_launches()
+    got, _ = encode_frames_sharded(pcm, mesh=mesh)
+    assert kernels.LAUNCHES["alloc_rdo"] > 0, kernels.LAUNCHES
+    ref, _ = encode_frames(pcm, device=card)
+    if "cpu" not in devices:
+        assert torch.equal(got.block_modes, ref.block_modes) and torch.equal(got.scale_factors, ref.scale_factors)
+        qdiff = (got.quantized - ref.quantized).abs()
+        assert int(qdiff.max()) <= 1 and float((qdiff != 0).float().mean()) < 1e-3
+    else:
+        bfu, _, _, _ = analysis_step(pcm, encoder_init_state(card, 2), (1.0,) * 3)
+        peaks = torch.where(torch.from_numpy(C.BFU_SLOT_MASK).to(card), bfu.abs(), 0.0).amax(dim=-1)
+        testing.backend_agreement({k: getattr(got, k).cpu().numpy() for k in got.fields()},
+                                  {k: getattr(ref, k).cpu().numpy() for k in ref.fields()}, peaks.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_fast_decode_on_the_card_within_the_golden_envelope(card):
+    """f32 matmul and conv1d on the card (TF32 off): within one int16 step of
+    the reference decoder, in fewer than 1% of the samples."""
+    from carta1_tpu_torch import decode_frames
+    from carta1_tpu_torch.ops.pcm import float_to_int16
+
+    _, units = read_aea(os.path.join(FIXTURES, "golden.aea"))
+    golden = np.load(os.path.join(FIXTURES, "golden_decode.npz"))["int16"]
+    pcm, _ = decode_frames(bitpack.unpack_frames(torch.from_numpy(units).to(card)), device=card, fast=True)
+    diff = np.abs(float_to_int16(pcm).cpu().numpy().reshape(-1).astype(np.int64) - golden)
+    assert diff.max() <= 1 and (diff != 0).mean() < 0.01
+
+
 @pytest.mark.parametrize(
     "call",
     [
