@@ -20,6 +20,8 @@ from carta1_tpu_torch.options import EncoderOptions  # noqa: E402
 from carta1_tpu_torch.pipeline.decoder import decode_frames, decode_step, decoder_init_state  # noqa: E402
 from carta1_tpu_torch.pipeline.encoder import encode_frames, encode_step, encoder_init_state  # noqa: E402
 from carta1_tpu_torch.processor import decode_file, decode_units, encode_clips, encode_file, encode_pcm  # noqa: E402
+from carta1_tpu_torch.ops.bitpack import pack_frames, unpack_frames  # noqa: E402
+from carta1_tpu_torch.gold import gold_decode_frames, gold_encode_frames  # noqa: E402
 from carta1_tpu_torch.parallel import decode_frames_sharded, encode_frames_sharded, make_mesh  # noqa: E402
 from carta1_tpu_torch.parallel.corpus import transcode_corpus  # noqa: E402
 
@@ -28,4 +30,5 @@ __all__ = [
     "decode_file", "decode_frames", "decode_step", "decoder_init_state", "decode_units",
     "encode_clips", "encode_file", "encode_frames", "encode_step", "encoder_init_state", "encode_pcm",
     "decode_frames_sharded", "encode_frames_sharded", "make_mesh", "transcode_corpus",
+    "gold_decode_frames", "gold_encode_frames", "pack_frames", "unpack_frames",
 ]

@@ -3,14 +3,16 @@ counterpart of `carta1_tpu/cli.py`).
 
 Same operations and flags as the JAX package's CLI: --encode / --decode /
 --json, --quiet, --force, --title, --bias, the transient thresholds, the
-allocator, --chunk-frames, --checkpoint, --profile and --debug-nans.  The
-port has one engine, so there is no --engine; --device (default: cuda)
-takes the place of --platform and never falls back to the CPU.
+allocator, --engine (tpu: the batched encoder; exact: units byte-equal to
+the reference's), --chunk-frames, --checkpoint, --profile and
+--debug-nans.  --device (default: cuda) takes the place of --platform and
+never falls back to the CPU.
 
 Usage:
   python -m carta1_tpu_torch.cli --encode in.wav out.aea
   python -m carta1_tpu_torch.cli --decode in.aea out.wav
   python -m carta1_tpu_torch.cli --json in.aea dump.json
+  python -m carta1_tpu_torch.cli --engine exact --encode in.wav out.aea
   python -m carta1_tpu_torch.cli --device cpu --encode in.wav out.aea
 """
 
@@ -203,6 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
         "measured signal); 'reference' replicates the reference heap's "
         "scale-factor proxy for output comparability",
     )
+    p.add_argument("--engine", choices=("tpu", "exact"), default="tpu",
+                   help="Codec engine: tpu (the batched encoder, default) or exact (the reference's bytes)")
     p.add_argument("--device", default="cuda", help="Torch device: cuda (default; no fallback) or cpu")
     p.add_argument("--chunk-frames", type=int, default=8192, help="Frames per device batch")
     p.add_argument(
@@ -270,6 +274,7 @@ def main(argv: list[str] | None = None) -> int:
                 result = encode_file(
                     args.input, args.output, options=options, title=title, chunk_frames=args.chunk_frames,
                     on_progress=Progress("Encoding", args.quiet), checkpoint=args.checkpoint, device=device,
+                    engine=args.engine,
                 )
                 if not args.quiet:
                     bitrate = round(C.BITRATE_PER_CHANNEL * result.channels / 1000)
@@ -284,6 +289,7 @@ def main(argv: list[str] | None = None) -> int:
                 result = decode_file(
                     args.input, args.output, chunk_frames=args.chunk_frames,
                     on_progress=Progress("Decoding", args.quiet), checkpoint=args.checkpoint, device=device,
+                    engine=args.engine,
                 )
                 if not args.quiet:
                     bitrate = round(C.BITRATE_PER_CHANNEL * result.channels / 1000)

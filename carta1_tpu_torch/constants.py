@@ -123,6 +123,7 @@ FRAME_HEADER_BITS = 16
 WORD_LENGTH_BITS = np.array(
     [0, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16], dtype=np.int32
 )
+MAX_WORD_LENGTH_INDEX = 15
 
 # scale factor table 2^(i/3 - 21) (f64, constants.js:144-150)
 SCALE_FACTORS = np.power(2.0, np.arange(64, dtype=np.float64) / 3.0 - 21.0)

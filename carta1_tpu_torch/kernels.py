@@ -42,8 +42,8 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> (library, what it replaces in the JAX package: a Pallas
-# kernel, or for the allocators the whole function that XLA compiled into
-# one program).  One library per source.
+# kernel, for K4 the whole function that XLA compiled into one program, for
+# K5 and K6 the exact engine's NumPy host code).  One library per source.
 KERNELS = {
     "imdct_exact_64": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
     "imdct_exact_256": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
@@ -52,6 +52,13 @@ KERNELS = {
     "read_fields": ("bitpack_read", "carta1_tpu/ops/bitpack_pallas.py:39"),
     "alloc_rdo": ("alloc_sweep", "carta1_tpu/ops/bitalloc.py:102"),
     "alloc_reference": ("alloc_sweep", "carta1_tpu/ops/bitalloc.py:187"),
+    # the exact engine's kernels: the host code they replace has no Pallas kernel
+    "alloc_heap": ("alloc_heap", "carta1_tpu/gold/coding.py:70"),
+    "fft_js_mdct_64": ("fft_js", "carta1_tpu/gold/transforms.py:42"),
+    "fft_js_mdct_256": ("fft_js", "carta1_tpu/gold/transforms.py:42"),
+    "fft_js_mdct_512": ("fft_js", "carta1_tpu/gold/transforms.py:42"),
+    "fft_js_spectrum_128": ("fft_js", "carta1_tpu/gold/fftjs.py:94"),
+    "fft_js_spectrum_256": ("fft_js", "carta1_tpu/gold/fftjs.py:94"),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in KERNELS.values()}))
 

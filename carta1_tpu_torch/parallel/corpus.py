@@ -87,6 +87,7 @@ def transcode_corpus(
     on_file_done: Callable[[str, int], None] | None = None,
     mesh="auto",
     device=None,
+    engine: str = "tpu",
 ) -> CorpusResult:
     """Transcode a corpus of (input, output) jobs.
 
@@ -100,11 +101,15 @@ def transcode_corpus(
     card when there is more than one and `device` is not given, else none;
     pass a mesh (`parallel.sharding.make_mesh`) or None.  `device` is the
     device of a run without a mesh (default: the card).
+
+    engine: "tpu" or "exact" (`processor.encode_file`).  As in the JAX
+    package, "auto" builds a mesh only for "tpu": a mesh run is the batched
+    engine's.
     """
     if process_index is None or process_count is None:
         process_index, process_count = _rank_and_world()
     if mesh == "auto":
-        mesh = make_mesh() if device is None and torch.cuda.device_count() > 1 else None
+        mesh = make_mesh() if engine == "tpu" and device is None and torch.cuda.device_count() > 1 else None
     if mode not in ("encode", "decode"):
         raise ValueError(f"Unknown mode: {mode}")
     place = {"device": device} if mesh is None else {"mesh": mesh}
@@ -127,10 +132,10 @@ def transcode_corpus(
                     result = encode_file(
                         input_path, output_path, options=options,
                         title=os.path.splitext(os.path.basename(output_path))[0],
-                        chunk_frames=chunk_frames, **place,
+                        chunk_frames=chunk_frames, engine=engine, **place,
                     )
                 else:
-                    result = decode_file(input_path, output_path, chunk_frames=chunk_frames, **place)
+                    result = decode_file(input_path, output_path, chunk_frames=chunk_frames, engine=engine, **place)
                 frames += result.frames
                 completed.append(input_path)
                 ckpt.mark(input_path)

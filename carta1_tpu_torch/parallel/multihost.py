@@ -60,6 +60,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--out-dir", required=True)
     p.add_argument("--checkpoint", help="JSON checkpoint path for resume (one file per process: PATH.p<rank>)")
     p.add_argument("--bias", type=float)
+    p.add_argument("--engine", choices=("tpu", "exact"), default="tpu")
     p.add_argument("--device", help="device of this process (default: cuda:LOCAL_RANK under torchrun; else the "
                                     "card, or every visible card as a mesh when there are several); no fallback")
     args = p.parse_args(argv)
@@ -92,7 +93,7 @@ def main(argv: list[str] | None = None) -> int:
             ckpt = f"{ckpt}.p{pi}"  # per-process checkpoint files
         result = transcode_corpus(
             jobs, mode=mode, options=options, checkpoint_path=ckpt,
-            process_index=pi, process_count=pc, device=device,
+            process_index=pi, process_count=pc, device=device, engine=args.engine,
         )
     finally:
         if torch.distributed.is_initialized():

@@ -122,11 +122,11 @@ def encode_step(
     return fd, new_state
 
 
-def encode_frames(
-    pcm, options: EncoderOptions | None = None, state: dict | None = None, device=None, plain: bool = False
-) -> tuple[FrameData, dict]:
-    """Public entry: encode [..., F, 512] f32 PCM (NumPy or tensor) on
-    `device` (default: the card)."""
+def encode_entry(pcm, options: EncoderOptions | None, state: dict | None, device, step) -> tuple[FrameData, dict]:
+    """What both engines' public entries share: [..., F, 512] f32 PCM (NumPy
+    or tensor) moved to `device` (default: the card) and checked, a zero
+    state with a channel axis when none is given, empty fields for F = 0;
+    otherwise `step(pcm, state, options)`."""
     dev = resolve_device(device)
     options = options or EncoderOptions()
     if not isinstance(pcm, torch.Tensor):
@@ -141,4 +141,13 @@ def encode_frames(
     if lead[-1] == 0:
         z = lambda *tail: torch.zeros((*lead, *tail), dtype=torch.int32, device=dev)  # noqa: E731
         return FrameData(z(), z(3), z(C.NUM_BFUS), z(C.NUM_BFUS), z(C.NUM_BFUS, C.MAX_BFU_SIZE)), state
-    return encode_step(pcm, state, options.band_thresholds, options.allocation_bias, options.allocator, plain=plain)
+    return step(pcm, state, options)
+
+
+def encode_frames(
+    pcm, options: EncoderOptions | None = None, state: dict | None = None, device=None, plain: bool = False
+) -> tuple[FrameData, dict]:
+    """Public entry: encode [..., F, 512] f32 PCM (NumPy or tensor) on
+    `device` (default: the card)."""
+    return encode_entry(pcm, options, state, device, lambda x, st, o: encode_step(
+        x, st, o.band_thresholds, o.allocation_bias, o.allocator, plain=plain))

@@ -10,6 +10,14 @@ decoded bit-exactly (K1, K2), and optionally converted to int16 there.
 Channels ride a leading batch axis and the stream state carries across
 chunks, so chunking never changes a bit of the output.
 
+Engines, with the JAX package's names and default: `engine="tpu"` is the
+batched encoder (`pipeline/encoder.py`, f32 transforms and the
+measured-distortion allocator, kernel K4), which in the port runs on the
+card; `engine="exact"` is the exact encoder (`gold/`: f64 transforms on
+kernel K6 and the reference's heap allocator, kernel K5), whose units are
+byte-equal to the reference JavaScript's.  Both decode with the bit-exact
+decoder, so `engine` changes nothing there but its check.
+
 `encode_file` and `decode_file` stream files through the same chunks with
 O(chunk) host memory: a memmapped reader feeds each chunk, and a chunk's
 result comes to the host one chunk late (`_Lag`), so the host writes chunk
@@ -37,6 +45,7 @@ from carta1_tpu_torch import constants as C
 from carta1_tpu_torch import profiling
 from carta1_tpu_torch.convert import state_from_numpy, state_to_numpy
 from carta1_tpu_torch.device import resolve_device
+from carta1_tpu_torch.gold.encoder import exact_encode_step
 from carta1_tpu_torch.io import aea
 from carta1_tpu_torch.io.streams import AeaStreamReader, AeaStreamWriter, StreamCheckpoint, WavStreamReader, WavStreamWriter
 from carta1_tpu_torch.ops.bitpack import pack_frames, unpack_frames
@@ -47,6 +56,12 @@ from carta1_tpu_torch.pipeline.decoder import decode_step, decoder_init_state
 from carta1_tpu_torch.pipeline.encoder import encode_step, encoder_init_state
 
 DEFAULT_CHUNK_FRAMES = 8192
+ENGINES = ("tpu", "exact")
+
+
+def _check_engine(engine: str) -> None:
+    if engine not in ENGINES:
+        raise ValueError(f"Unknown engine: {engine}")
 
 
 def pcm_to_frames(pcm: np.ndarray) -> np.ndarray:
@@ -60,19 +75,24 @@ def pcm_to_frames(pcm: np.ndarray) -> np.ndarray:
     return out
 
 
-def _encode_batch_dev(frames: torch.Tensor, options: EncoderOptions, state: dict | None, plain: bool = False):
-    """Encode one chunk already on the device; the units stay there.
+def _encode_batch_dev(frames: torch.Tensor, options: EncoderOptions, state: dict | None, plain: bool = False,
+                      engine: str = "tpu"):
+    """Encode one chunk already on the device with `engine`; the units stay there.
 
     frames: [C, F, 512] f32, or int16 raw WAV samples, converted on the
     device (bitwise the host conversion, half the upload).  Returns (units
     uint8 [C, F, 212] on the device, new state)."""
+    _check_engine(engine)
     if state is None:
         state = encoder_init_state(frames.device, frames.shape[0])
     pcm = int16_to_float(frames) if frames.dtype == torch.int16 else frames.to(torch.float32)
     profiling.nan_check("encoder input PCM", pcm)
-    fd, state = encode_step(
-        pcm, state, options.band_thresholds, options.allocation_bias, options.allocator, plain=plain
-    )
+    if engine == "exact":
+        fd, state = exact_encode_step(pcm, state, options, plain=plain)
+    else:
+        fd, state = encode_step(
+            pcm, state, options.band_thresholds, options.allocation_bias, options.allocator, plain=plain
+        )
     return pack_frames(fd), state
 
 
@@ -82,13 +102,17 @@ def encode_pcm(
     device=None,
     chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     plain: bool = False,
+    engine: str = "tpu",
 ) -> np.ndarray:
     """pcm: f32 (or raw int16) [channels, N] -> interleaved sound units uint8 [F*C, 212].
 
     `device=None` encodes on the card.  Long inputs stream through
     fixed-size chunks with the stream state carried; the units of every
-    chunk stay on the device until the end.  `plain=True` runs the kernels'
-    plain PyTorch versions (the kernels' yardstick)."""
+    chunk stay on the device until the end.  `engine` is "tpu" (the
+    batched encoder) or "exact" (units byte-equal to the reference's; the
+    module docstring).  `plain=True` runs the kernels' plain PyTorch
+    versions (the kernels' yardstick)."""
+    _check_engine(engine)
     dev = resolve_device(device)
     options = options or EncoderOptions()
     pcm = np.asarray(pcm)
@@ -99,7 +123,7 @@ def encode_pcm(
     chunks = []
     for start in range(0, frames.shape[1], chunk_frames):
         chunk = torch.from_numpy(np.ascontiguousarray(frames[:, start:start + chunk_frames])).to(dev)
-        units, state = _encode_batch_dev(chunk, options, state, plain=plain)
+        units, state = _encode_batch_dev(chunk, options, state, plain=plain, engine=engine)
         chunks.append(units)
     units = torch.cat(chunks, dim=1).cpu().numpy()                    # [C, F, 212]
     if units.shape[0] == 1:
@@ -128,13 +152,16 @@ def decode_units(
     chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     to_i16: bool = False,
     plain: bool = False,
+    engine: str = "tpu",
 ) -> torch.Tensor:
     """Interleaved sound units uint8 [N, 212] -> PCM [channels, F*512] on `device`.
 
     `device=None` decodes on the card.  Odd stereo unit counts are padded
     with a silent unit (processor.js:201-211).  The result is f32, or int16
-    with the reference's WAV conversion when `to_i16` is set.  `plain=True`
-    runs the kernels' plain PyTorch versions (the kernels' yardstick)."""
+    with the reference's WAV conversion when `to_i16` is set.  Both engines
+    decode bit-exactly, with the same decoder.  `plain=True` runs the
+    kernels' plain PyTorch versions (the kernels' yardstick)."""
+    _check_engine(engine)
     dev = resolve_device(device)
     units = np.ascontiguousarray(units, dtype=np.uint8)
     if channel_count not in (1, 2):
@@ -310,9 +337,11 @@ def encode_file(
     device=None,
     plain: bool = False,
     mesh=None,
+    engine: str = "tpu",
 ) -> TranscodeResult:
     """Bounded-memory streaming encode: memmapped WAV in, incremental AEA out
-    (bin/cli.js:165-354), on the card unless `device="cpu"`.
+    (bin/cli.js:165-354), on the card unless `device="cpu"`, with `engine`
+    "tpu" (the batched encoder) or "exact" (the reference's bytes).
 
     The chunks are `encode_pcm`'s (full chunks, then a short last one), so
     the units are byte-equal to `encode_pcm` of the file's samples with the
@@ -331,7 +360,9 @@ def encode_file(
     other way round, and the units equal those of a run without a mesh
     (bitwise whenever the f32 encoder gives the same bits on the shards'
     rows).  This departs from the JAX package, whose mesh runs carry and
-    checkpoint the last two raw frames instead."""
+    checkpoint the last two raw frames instead.  As in the JAX package, a
+    mesh run is the batched engine's and does not consult `engine`."""
+    _check_engine(engine)
     mesh, dev = _placement(mesh, device, plain)
     reader = WavStreamReader(input_wav)
     nch = reader.info.channels
@@ -360,7 +391,7 @@ def encode_file(
         lag.phases["write_s"] += time.perf_counter() - t
 
     if mesh is None:
-        dispatch = lambda x, st: _encode_batch_dev(x.to(dev), options, st, plain=plain)  # noqa: E731
+        dispatch = lambda x, st: _encode_batch_dev(x.to(dev), options, st, plain=plain, engine=engine)  # noqa: E731
     else:
         dispatch = lambda x, st: _encode_chunk_sharded(x, options, st, mesh)  # noqa: E731
     _run_chunks(chunks(), dispatch, write, writer, state, ckpt, checkpoint_every, meta, nch, nframes, on_progress, lag)
@@ -382,13 +413,16 @@ def decode_file(
     device=None,
     plain: bool = False,
     mesh=None,
+    engine: str = "tpu",
 ) -> TranscodeResult:
     """Bounded-memory streaming decode (the mirror of `encode_file`): each
     chunk's units are uploaded, decoded bit-exactly and converted to int16
     on the device, and written to a 16-bit WAV.  An odd stereo unit count
     gets a silent unit (processor.js:201-211).  `mesh` splits each chunk's
     frames across its devices, as in `encode_file`; the WAV is byte-equal
-    to a run without one."""
+    to a run without one.  Both engines decode with the same bit-exact
+    decoder; `engine` is checked and kept for the JAX package's signature."""
+    _check_engine(engine)
     mesh, dev = _placement(mesh, device, plain)
     reader = AeaStreamReader(input_aea)
     nch = reader.meta.channel_count

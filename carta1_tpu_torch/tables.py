@@ -75,19 +75,30 @@ def _twiddles(stride: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def imdct_tables(size: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """Everything one IMDCT size needs, flat, for the kernel and its plain twin.
-
-    Returns (sincos f64 [size/2], perm int32 [size/4], tw_re f64 [size/4 - 1],
-    tw_im f64 [size/4 - 1]); tw_* concatenate the FFT stages' twiddles,
-    stride 2 first, each stage holding stride/2 entries."""
-    n = size >> 2
+def fft_tables(n: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """What an n-point fft.js FFT needs, flat, for the kernels and their
+    plain versions: (perm int32 [n], tw_re f64 [n - 1], tw_im f64 [n - 1]);
+    tw_* concatenate the stages' twiddles, stride 2 first, each stage
+    holding stride/2 entries, so stage q's twiddle k is entry 2^q - 1 + k."""
     tw = [_twiddles(1 << s) for s in range(1, n.bit_length())]
     tw_re = np.concatenate([t[0] for t in tw])
     tw_im = np.concatenate([t[1] for t in tw])
     assert tw_re.shape == (n - 1,)
-    perm = _bit_reverse_perm(n).astype(np.int32)
-    return _sincos_table(size, IMDCT_SCALES[size]), perm, tw_re, tw_im
+    return _bit_reverse_perm(n).astype(np.int32), tw_re, tw_im
+
+
+@functools.lru_cache(maxsize=None)
+def imdct_tables(size: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Everything one IMDCT size needs, flat, for the kernel and its plain twin:
+    (sincos f64 [size/2], perm int32 [size/4], tw_re, tw_im f64 [size/4 - 1])."""
+    return (_sincos_table(size, IMDCT_SCALES[size]), *fft_tables(size >> 2))
+
+
+@functools.lru_cache(maxsize=None)
+def mdct_tables(size: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The same for the forward MDCT (mdct.js:54-122) with the reference's
+    scale: (sincos f64 [size/2], perm, tw_re, tw_im)."""
+    return (_sincos_table(size, MDCT_SCALES[size]), *fft_tables(size >> 2))
 
 
 # ---------------------------------------------------------------------------
@@ -280,3 +291,23 @@ RDO_CAND_BFU = np.repeat(np.arange(C.NUM_BFUS, dtype=np.int32), 15)
 RDO_CAND_WL = np.tile(np.arange(15, dtype=np.int32), C.NUM_BFUS)
 RDO_CAND_COST = (RDO_STEP_BITS[RDO_CAND_WL] * C.SPECS_PER_BFU[RDO_CAND_BFU]).astype(np.int32)
 RDO_BUDGET = int(C.FRAME_BITS - C.FRAME_OVERHEAD_BITS - C.NUM_BFUS * C.BITS_PER_BFU_METADATA)   # 1136
+
+
+@functools.lru_cache(maxsize=None)
+def heap_priority_table(bias: float) -> np.ndarray:
+    """f64 [64, 15]: the reference heap's priority of the step wl -> wl + 1
+    of a BFU whose scale factor index is sf (bitallocation.js:91-105,
+    `carta1_tpu/gold/coding.py` allocate_bits_frame `priority`), computed
+    on the host by the same NumPy scalar operations in the same order:
+    eff = SCALE_FACTORS[sf] ** bias, then eff * (f1 - f2) / (b2 - b1).  No
+    device `pow` or division decides a priority."""
+    wlb = C.WORD_LENGTH_BITS
+    out = np.zeros((64, C.MAX_WORD_LENGTH_INDEX), np.float64)
+    for sf in range(64):
+        eff = C.SCALE_FACTORS[sf] ** bias
+        for cur in range(C.MAX_WORD_LENGTH_INDEX):
+            b1, b2 = int(wlb[cur]), int(wlb[cur + 1])
+            f1 = 2.0 if b1 == 0 else C.INV_POWER_OF_TWO[b1]
+            out[sf, cur] = eff * (f1 - C.INV_POWER_OF_TWO[b2]) / (b2 - b1)
+    out.setflags(write=False)
+    return out

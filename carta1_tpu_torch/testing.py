@@ -426,3 +426,74 @@ def synth_audio(nframes: int, channels: int = 2) -> np.ndarray:
             sig[pos:pos + 256] += 0.3
         out[ch] = np.clip(sig, -1, 1).astype(np.float32)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The exact engine: K5's edge inputs and the byte fixture
+# ---------------------------------------------------------------------------
+EXACT_CLASS_FRAMES = 32                   # frames of each signal class in the fixture
+EXACT_BIAS_CLASSES = ("sine_mix", "transients")
+EXACT_BIASES = (0.7, 2.0)
+
+
+def heap_edge_cases(block: int) -> list[tuple[str, np.ndarray, int]]:
+    """(name, sf_idx int32 [F, 52], budget) for K5 (`heap_kernels.alloc_heap`):
+    the scale factors of every `alloc_edge_cases` input (exact ties, silent,
+    all 63, sparse, ...) with the codec's budget, and heaps of 0, 1, 2 and
+    52 entries: one BFU alone (it reaches the top word length and leaves
+    bits), two that tie and two that do not, 52 equal ones; then the eight
+    8-slot BFUs (1024 bits to reach the top) with budgets that run out one
+    bit before, exactly at and one bit after the last step, and budgets of
+    0, 1 and 2.  `block` is the frames one block of the kernel takes."""
+    from carta1_tpu_torch.constants import SPECS_PER_BFU
+    from carta1_tpu_torch.tables import RDO_BUDGET
+
+    cases = [(name, sf, RDO_BUDGET) for name, _, sf in alloc_edge_cases(block)]
+    rng = np.random.default_rng(505)
+    one = np.zeros((52, 52), np.int32)
+    one[np.arange(52), np.arange(52)] = rng.integers(1, 64, 52)
+    cases.append(("one BFU in the heap, each BFU in turn", one, RDO_BUDGET))
+    two = np.zeros((3 * block + 1, 52), np.int32)
+    for r in range(two.shape[0]):
+        a, b = rng.choice(52, 2, replace=False)
+        two[r, a] = rng.integers(1, 64)
+        two[r, b] = two[r, a] if r % 2 else rng.integers(1, 64)
+    cases.append(("two BFUs in the heap, tied in every other frame", two, RDO_BUDGET))
+    cases.append(("52 equal BFUs", np.tile(np.arange(1, 64, 3, dtype=np.int32)[:, None], (1, 52)), RDO_BUDGET))
+    eight = np.where(SPECS_PER_BFU == 8, rng.integers(1, 64, (block + 3, 52)), 0).astype(np.int32)
+    for budget in (1023, 1024, 1025, 0, 1, 2):
+        cases.append((f"eight 8-slot BFUs, budget {budget}", eight, budget))
+    return cases
+
+
+def heap_edge_peaks(sf_idx: np.ndarray) -> np.ndarray:
+    """f32 [F, 52, 20] BFU data whose scale factor indices (by the gold
+    engine's ceil(3 * (log2(peak) + 21))) are `sf_idx`: each BFU's peak is
+    the largest f32 at or below its table value, in its first slot."""
+    from carta1_tpu_torch.constants import SCALE_FACTORS
+
+    v = SCALE_FACTORS.astype(np.float32)
+    v = np.where(v.astype(np.float64) > SCALE_FACTORS, np.nextafter(v, np.float32(0)), v)
+    out = np.zeros((*sf_idx.shape, 20), np.float32)
+    out[..., 0] = np.where(sf_idx > 0, v[sf_idx], 0)
+    return out
+
+
+def exact_expect(path: str) -> dict:
+    """`tests/fixtures/torch_exact_expect.npz`: the stored f32 input frames
+    and the gold engine's units (`tools/make_torch_exact_fixture.py`).
+    Returns {"inputs": {name: f32 [F, 512]}, "units": {(name, bias): uint8
+    [F, 212]}}: the golden signal ("golden", 87 frames, bias 1.0), the six
+    signal classes (their first EXACT_CLASS_FRAMES frames, bias 1.0) and
+    EXACT_BIAS_CLASSES at EXACT_BIASES.  The inputs are stored, not made
+    again, because a signal built through NumPy's sin may differ in its
+    last bits on another machine."""
+    out: dict = {"inputs": {}, "units": {}}
+    with np.load(path) as z:
+        for key in z.files:
+            name, what = key.split("/")
+            if what == "frames":
+                out["inputs"][name] = z[key]
+            else:
+                out["units"][(name, float(what.split("_")[1]))] = z[key]
+    return out

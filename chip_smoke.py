@@ -7,8 +7,9 @@ toolkit:  python3 chip_smoke.py [--record PATH]
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
   2. build: compiles every kernel (K1 IMDCT at sizes 64/256/512, K2 QMF
-     taps, K3 field read, K4 the two bit allocators) from
-     carta1_tpu_torch/csrc;
+     taps, K3 field read, K4 the two bit allocators, K5 the reference's
+     heap allocator, K6 the fft.js forward MDCT and magnitude spectrum)
+     from carta1_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the first stereo 8192-frame chunk of the transcode gives it,
      and on edge inputs (batches around a block's tile, small widths, +0,
@@ -63,7 +64,21 @@ Phases (each raises on failure; nothing is caught):
      failed with no output, a resumed run skips the 8) and two gloo
      processes of `python -m carta1_tpu_torch.parallel.multihost` on cuda:0
      (disjoint, complete); walls and the corpus's realtime multiple.
-     Phases 9 and 10 write under build/ and delete it at the end.
+     Phases 9 and 10 write under build/ and delete it at the end;
+ 11. the exact engine (engine="exact"): (a) the golden signal's stored
+     input through encode_pcm on the card, units byte-equal to
+     tests/fixtures/golden.aea, decoded to int16 equal to golden_decode.npz;
+     (b) the six signal classes and the bias variants of
+     tests/fixtures/torch_exact_expect.npz byte-equal to the gold engine's
+     units, mono and as stereo pairs, 3-frame chunks equal to one chunk;
+     (c) phase 6's stream through the exact encode -> units -> exact decode
+     -> int16, both states carried, launch counters reset just before and
+     read just after (K5 and K6 must have launched), units and int16 equal
+     to the plain path and to a second run; ms per chunk, device busy under
+     the profiler, the share of fields equal to phase 6's batched engine,
+     the smallest margin of a transient score to its threshold; (d) K5 and
+     K6 against their plain versions in phase 3's manner, at (c)'s first
+     chunk's shapes and on edge inputs.
 
 The last lines are a JSON `kernels` line, the card's name and power limit,
 and the result line.  The full record (every timing, the profile) goes to
@@ -95,8 +110,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F64_S = 17e12
 PEAK_F32_S = 33.5e12
 # which path's launch counts hold each kernel: K4's reference allocator runs
-# in phase 5 (allocator="reference"), every other kernel on the main path
-PATHS = {"alloc_reference": "phase 5"}
+# in phase 5 (allocator="reference"), the exact engine's K5 and K6 in phase
+# 11 (engine="exact"), every other kernel on the main path (phase 6)
+EXACT_KERNELS = ("alloc_heap", "fft_js_mdct_64", "fft_js_mdct_256", "fft_js_mdct_512", "fft_js_spectrum_128",
+                 "fft_js_spectrum_256")
+PATHS = {"alloc_reference": "phase 5", **{k: "phase 11" for k in EXACT_KERNELS}}
 
 
 def _smi() -> str:
@@ -289,7 +307,7 @@ def _timed(fn, dev: torch.device):
     return time.perf_counter() - t0, out
 
 
-HAND_NAMES = ("imdct", "qmf_taps", "read_fields", "alloc_rdo", "alloc_reference")
+HAND_NAMES = ("imdct", "qmf_taps", "read_fields", "alloc_rdo", "alloc_reference", "alloc_heap", "fftjs")
 
 
 def _profile(fn) -> dict:
@@ -626,6 +644,184 @@ def sharded_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, opt
           f"{mh_wall:.2f} s wall with start-up) split {[len(d) for d in done]}, disjoint and complete, "
           f"realtime multiples {[x['realtime_multiple'] for x in lines]}")
     rec["launches_sharded"] = launches_sharded
+    return rec
+
+
+def exact_phase(pcm16: np.ndarray, units: torch.Tensor, options, fixtures: str, golden_units: np.ndarray,
+                golden: np.ndarray, dev: torch.device, check, rows: list) -> dict:
+    """Phase 11: the exact engine on the card.  pcm16 is phase 6's stream
+    ([2, F, 512] int16) and `units` its batched-engine units on the card;
+    `check` is phase 3's kernel check, which appends K5's and K6's rows to
+    `rows`."""
+    from carta1_tpu_torch import EncoderOptions, decode_units, encode_pcm, kernels, testing
+    from carta1_tpu_torch.gold import fftjs, transforms
+    from carta1_tpu_torch.gold.encoder import analysis_bands, encoder_init_state, exact_analysis, mdct_inputs
+    from carta1_tpu_torch.io.aea import deinterleave_stereo
+    from carta1_tpu_torch.ops import fftjs_kernels, heap_kernels
+    from carta1_tpu_torch.ops.bitpack import unpack_frames
+    from carta1_tpu_torch.ops.pcm import int16_to_float
+    from carta1_tpu_torch.processor import _decode_batch_dev, _encode_batch_dev
+
+    rec: dict = {}
+    nch, nframes = pcm16.shape[:2]
+    chunks = nframes // CHUNK
+    expect = testing.exact_expect(os.path.join(fixtures, "torch_exact_expect.npz"))
+
+    def upload(k: int) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(pcm16[:, k * CHUNK:(k + 1) * CHUNK])).to(dev)
+
+    # 11a. the golden signal, from its stored input
+    t0 = time.perf_counter()
+    g_units = encode_pcm(expect["inputs"]["golden"].reshape(1, -1), device=dev, engine="exact")
+    if not np.array_equal(g_units, golden_units):
+        raise AssertionError(f"exact engine: golden signal's units differ from golden.aea in "
+                             f"{int((g_units != golden_units).sum())} bytes")
+    g_pcm = decode_units(g_units, 1, device=dev, to_i16=True, engine="exact").cpu().numpy().reshape(-1)
+    if not np.array_equal(g_pcm, golden):
+        raise AssertionError(f"exact engine: golden int16 differs in {int((g_pcm != golden).sum())} samples")
+
+    # 11b. the classes and the bias variants, mono and as stereo pairs; 3-frame chunks
+    checked = []
+    for (name, bias), want in expect["units"].items():
+        opts = EncoderOptions(allocation_bias=bias)
+        got = encode_pcm(expect["inputs"][name].reshape(1, -1), opts, device=dev, engine="exact")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"exact engine: {name} at bias {bias} differs from gold in "
+                                 f"{int((got != want).sum())} bytes")
+        checked.append(f"{name}@{bias}")
+        if name != "golden" and bias == 1.0:
+            thirds = encode_pcm(expect["inputs"][name].reshape(1, -1), device=dev, engine="exact", chunk_frames=3)
+            if not np.array_equal(thirds, want):
+                raise AssertionError(f"exact engine: {name} in 3-frame chunks differs from one chunk")
+    classes = [c for c in testing.signals(1.0)]
+    pairs = [((classes[i], 1.0), (classes[i + 1], 1.0)) for i in range(0, len(classes), 2)]
+    pairs += [((testing.EXACT_BIAS_CLASSES[0], b), (testing.EXACT_BIAS_CLASSES[1], b)) for b in testing.EXACT_BIASES]
+    for left, right in pairs:
+        stereo = np.stack([expect["inputs"][left[0]].reshape(-1), expect["inputs"][right[0]].reshape(-1)])
+        got = deinterleave_stereo(encode_pcm(stereo, EncoderOptions(allocation_bias=left[1]), device=dev,
+                                             engine="exact"))
+        if not (np.array_equal(got[0], expect["units"][left]) and np.array_equal(got[1], expect["units"][right])):
+            raise AssertionError(f"exact engine: the stereo pair {left}, {right} differs from gold's units")
+    rec["fixture"] = {"checked": checked, "stereo_pairs": [[list(a), list(b)] for a, b in pairs],
+                      "seconds": time.perf_counter() - t0}
+    print(f"exact engine: golden signal byte-equal to golden.aea ({golden_units.shape[0]} units), int16 equal to "
+          f"golden_decode.npz; {len(checked) - 1} class and bias variants byte-equal to gold's units, mono, in "
+          f"3-frame chunks and as {len(pairs)} stereo pairs ({rec['fixture']['seconds']:.2f} s)")
+
+    # 11c. phase 6's stream through the exact engine, both states carried
+    def transcode(plain: bool = False, n: int = chunks):
+        est = dst = None
+        u_out, p_out = [], []
+        for k in range(n):
+            u, est = _encode_batch_dev(upload(k), options, est, plain=plain, engine="exact")
+            p, dst = _decode_batch_dev(u, dst, to_i16=True, plain=plain)
+            u_out.append(u)
+            p_out.append(p)
+        return torch.cat(u_out, dim=1), torch.cat(p_out, dim=1)
+
+    def encode_only():
+        est, out = None, None
+        for k in range(chunks):
+            out, est = _encode_batch_dev(upload(k), options, est, engine="exact")
+        return out
+
+    transcode(n=1)                                                       # warm the tables
+    _sync(dev)
+    kernels.reset_launches()
+    wall, (x_units, x_pcm) = _timed(transcode, dev)
+    launches = dict(kernels.LAUNCHES)
+    path = ("imdct_exact_64", "imdct_exact_256", "imdct_exact_512", "qmf_taps", "read_fields") + EXACT_KERNELS
+    missing = [k for k in path if launches[k] == 0]
+    if dev.type == "cuda" and missing:
+        raise AssertionError(f"exact engine: the stream launched no {missing}: {launches}")
+    again_wall, (u2, p2) = _timed(transcode, dev)
+    if _mismatch(x_units, u2)[0] or _mismatch(x_pcm, p2)[0]:
+        raise AssertionError("exact engine: a second run gave other units or samples")
+    plain_wall, (up, pp) = _timed(lambda: transcode(plain=True), dev)
+    mu, mp = _mismatch(x_units, up)[0], _mismatch(x_pcm, pp)[0]
+    if mu or mp:
+        raise AssertionError(f"exact engine: {mu} unit bytes and {mp} int16 samples differ from the plain path")
+    del u2, p2, up, pp
+    repeats = [_timed(transcode, dev)[0] for _ in range(3)]
+    enc_repeats = [_timed(encode_only, dev)[0] for _ in range(3)]
+    ms = sorted(repeats)[1] / chunks * 1e3
+    enc_ms = sorted(enc_repeats)[1] / chunks * 1e3
+    prof = _profile(lambda: _encode_batch_dev(upload(0), options, None, engine="exact"))
+    fx, fb = unpack_frames(x_units.reshape(-1, 212)), unpack_frames(units.reshape(-1, 212))
+    equal = {k: float((getattr(fx, k) == getattr(fb, k)).double().mean()) for k in fx.fields()}
+
+    # the transient scores' smallest distance to their thresholds, and their modes
+    st, margin, modes = encoder_init_state(dev, nch), float("inf"), []
+    for k in range(chunks):
+        _, _, m, scores, st = exact_analysis(int16_to_float(upload(k)), st, options)
+        for b in range(3):
+            thr = options.band_thresholds[b]
+            margin = min(margin, float(((scores[b] - thr).abs() / thr).min()))
+        modes.append(m)
+    if not torch.equal(torch.cat(modes, dim=1).reshape(-1, 3), fx.block_modes):
+        raise AssertionError("exact engine: the analysis's block modes differ from the encoded units'")
+    if margin < 1e-12:
+        raise AssertionError(f"exact engine: a transient score lies {margin:.3e} (relative) from its threshold: "
+                             "a last-ulp difference of a math library could flip its mode")
+    cf = nch * nframes
+    short = (fx.block_modes != 0).sum(dim=0).tolist()
+    rec["stream"] = {"seconds": wall, "second_run_seconds": again_wall, "plain_seconds": plain_wall,
+                     "repeat_seconds": repeats, "encode_repeat_seconds": enc_repeats, "ms_per_chunk": ms,
+                     "encode_ms_per_chunk": enc_ms, "launches": launches, "profile_encode_one_chunk": prof,
+                     "fields_equal_batched_engine": equal, "min_threshold_margin": margin, "short_frames": short}
+    print(f"exact engine: transcode of {chunks} x {CHUNK} stereo frames (int16 -> exact encode -> units -> exact "
+          f"decode -> int16) in {wall:.4f} s (second run {again_wall:.4f} s, repeats "
+          f"{', '.join(f'{r:.4f}' for r in repeats)} s = {ms:.3f} ms per chunk, {cf / sorted(repeats)[1]:.1f} "
+          f"channel-frames/s; plain versions {plain_wall:.4f} s); encode alone "
+          f"{', '.join(f'{r:.4f}' for r in enc_repeats)} s = {enc_ms:.3f} ms per chunk; units and int16 equal to the "
+          f"plain path and to a second run; launches {launches}")
+    print(f"exact engine: one chunk's encode under the profiler: device busy {prof['device_ms']:.3f} ms of "
+          f"{enc_ms:.3f} ms host wall (unprofiled) = idle share {1 - prof['device_ms'] / enc_ms:.3f}; "
+          f"{prof['device_launches']} device launches; top: "
+          + "; ".join(f"{o['name'][:40]} x{o['count']} {o['self_device_ms']:.3f} ms" for o in prof["ops"][:8]))
+    print(f"exact engine: fields equal to phase 6's batched engine {equal}; short frames per band {short}; "
+          f"smallest relative margin of a transient score to its threshold {margin:.6e}")
+
+    # 11d. K5 and K6 against their plain versions at the first chunk's shapes and on edge inputs
+    pcm0 = int16_to_float(upload(0))
+    st0 = encoder_init_state(dev, nch)
+    _, sf, _, _, _ = exact_analysis(pcm0, st0, options)
+    sf = sf.reshape(-1, 52).contiguous()
+    bands, _ = analysis_bands(pcm0, st0)
+    long_in, short_in, _ = mdct_inputs(bands, st0)
+    bias = options.allocation_bias
+    heap_edges = [(torch.from_numpy(c).to(dev), x, budget)
+                  for _, c, budget in testing.heap_edge_cases(heap_kernels.BLOCK_FRAMES) for x in (0.7, 1.0, 2.0)]
+    print("alloc_heap: library_ms null -- no PyTorch call runs a budgeted greedy heap")
+    check("alloc_heap", [(sf, bias)], heap_kernels.alloc_heap_plain, heap_kernels.alloc_heap,
+          sf.numel() * 8 + 64 * 15 * 8, 0, reps=50, edge_cases=[(sf, b) for b in (0.7, 2.0)] + heap_edges)
+    wl = heap_kernels.alloc_heap(sf, bias)
+    rows[-1]["heap_steps_per_frame"] = float(wl.double().sum(dim=1).mean())
+    spectra = {128: torch.stack([bands[0], bands[1]]).reshape(-1, 128).contiguous(),
+               256: bands[2].reshape(-1, 256).contiguous()}
+    mdcts = {256: torch.stack(long_in[:2]).reshape(-1, 256).contiguous(), 512: long_in[2].reshape(-1, 512).contiguous(),
+             64: short_in.reshape(-1, 64).contiguous()}
+    for size in fftjs_kernels.MDCT_SIZES:
+        x, n = mdcts[size], size // 4
+        ops = x.shape[0] * (8 * n + 10 * (n // 2) * (n.bit_length() - 1) + 6 * n)
+        edges = [(torch.from_numpy(testing.edge_rows(b, size, sd, 1e30)).to(dev), size)
+                 for b, sd in testing.edge_cases(fftjs_kernels.ROWS[("mdct", size)])]
+        check(f"fft_js_mdct_{size}", [(x, size)], transforms.mdct_js_plain, fftjs_kernels.mdct_js,
+              x.numel() * 4 * 3 // 2 + (size // 2 + 2 * (n - 1)) * 8, ops, reps=50,
+              library=lambda x=x: torch.fft.fft(x), edge_cases=edges)
+    for size in fftjs_kernels.SPECTRUM_SIZES:
+        x, n = spectra[size], size
+        ops = x.shape[0] * (10 * (n // 2) * (n.bit_length() - 1) + 4 * (n // 2))
+        edges = [(torch.from_numpy(testing.edge_rows(b, size, sd, 1e30)).to(dev), size)
+                 for b, sd in testing.edge_cases(fftjs_kernels.ROWS[("spectrum", size)])]
+        check(f"fft_js_spectrum_{size}", [(x, size)], fftjs.magnitude_spectrum_js_plain,
+              fftjs_kernels.magnitude_spectrum_js, x.numel() * 4 * 3 // 2 + 2 * (n - 1) * 8, ops, reps=50,
+              library=lambda x=x: torch.fft.fft(x), edge_cases=edges)
+    print("fft_js: library_ms is torch.fft.fft of the same rows (a speed reference: it rounds elsewhere)")
+    for row in rows:
+        row["launches_exact"] = launches[row["name"]]
+        if row["name"] in EXACT_KERNELS:
+            row["launches"], row["launches_path"] = launches[row["name"]], "phase 11"
     return rec
 
 
@@ -1029,6 +1225,11 @@ def main() -> int:
     print(f"phase 10: {time.perf_counter() - t10:.1f} s")
     for row in rows:
         row["launches_sharded"] = record["phase10"]["launches_sharded"][row["name"]]
+
+    # 11. the exact engine
+    t11 = time.perf_counter()
+    record["phase11"] = exact_phase(pcm16, units, options, fixtures, golden_units, golden, dev, check, rows)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     record["kernels"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -17,7 +17,9 @@ import torch
 
 from carta1_tpu_torch import EncoderOptions, decode_units, encode_frames, encode_pcm, kernels, testing
 from carta1_tpu_torch.io.aea import read_aea
-from carta1_tpu_torch.ops import bitalloc, bitalloc_kernels, bitpack, bitpack_kernels, imdct_kernels, qmf_kernels
+from carta1_tpu_torch.gold import fftjs, transforms
+from carta1_tpu_torch.ops import (bitalloc, bitalloc_kernels, bitpack, bitpack_kernels, fftjs_kernels, heap_kernels,
+                                  imdct_kernels, qmf_kernels)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -240,6 +242,54 @@ def test_fast_decode_on_the_card_within_the_golden_envelope(card):
     assert diff.max() <= 1 and (diff != 0).mean() < 0.01
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [0.7, 1.0, 2.0])
+def test_heap_kernel_edge_inputs_match_plain(card, bias):
+    """K5 on its edge inputs: exact ties, silent and all-63 frames, heaps of
+    0, 1, 2 and 52 entries, budgets that run out at, before and after the
+    last step.  One launch per call, counted."""
+    for name, sf, budget in testing.heap_edge_cases(heap_kernels.BLOCK_FRAMES):
+        s = torch.from_numpy(sf).to(card)
+        before = kernels.LAUNCHES["alloc_heap"]
+        got = heap_kernels.alloc_heap(s, bias, budget)
+        assert kernels.LAUNCHES["alloc_heap"] == before + 1, name
+        assert torch.equal(got, heap_kernels.alloc_heap_plain(s, bias, budget)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,size", [("mdct", s) for s in fftjs_kernels.MDCT_SIZES]
+                         + [("spectrum", s) for s in fftjs_kernels.SPECTRUM_SIZES])
+def test_fftjs_kernel_edge_inputs_match_plain(card, kind, size):
+    """K6 on batches around a block's rows: +0, -0, denormals, huge and lone samples."""
+    for batch, seed in testing.edge_cases(fftjs_kernels.ROWS[(kind, size)]):
+        x = torch.from_numpy(testing.edge_rows(batch, size, seed, 1e30)).to(card)
+        if kind == "mdct":
+            got, want = fftjs_kernels.mdct_js(x, size), transforms.mdct_js_plain(x, size)
+        else:
+            got, want = fftjs_kernels.magnitude_spectrum_js(x, size), fftjs.magnitude_spectrum_js_plain(x, size)
+        assert _same_bits(got, want), (batch, seed)
+
+
+@pytest.mark.cuda
+def test_exact_engine_on_the_card_equals_gold_units(card):
+    """encode_pcm(engine="exact") on the card: golden.aea, the fixture's
+    classes and biases, byte for byte; 3-frame chunks equal one chunk; K5
+    and K6 launched; the plain versions give the same units."""
+    expect = testing.exact_expect(os.path.join(FIXTURES, "torch_exact_expect.npz"))
+    _, golden = read_aea(os.path.join(FIXTURES, "golden.aea"))
+    kernels.reset_launches()
+    for (name, bias), want in expect["units"].items():
+        pcm = expect["inputs"][name].reshape(1, -1)
+        got = encode_pcm(pcm, EncoderOptions(allocation_bias=bias), device=card, engine="exact")
+        assert np.array_equal(got, want), (name, bias)
+    assert np.array_equal(expect["units"][("golden", 1.0)], golden)
+    assert kernels.LAUNCHES["alloc_heap"] and kernels.LAUNCHES["fft_js_mdct_64"] and kernels.LAUNCHES["fft_js_spectrum_256"]
+    pcm = expect["inputs"]["transients"].reshape(1, -1)
+    want = expect["units"][("transients", 1.0)]
+    assert np.array_equal(encode_pcm(pcm, device=card, engine="exact", chunk_frames=3), want)
+    assert np.array_equal(encode_pcm(pcm, device=card, engine="exact", plain=True), want)
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -251,6 +301,13 @@ def test_fast_decode_on_the_card_within_the_golden_envelope(card):
         lambda: imdct_kernels.imdct_mid(torch.zeros(4, 64), 128),
         lambda: imdct_kernels.imdct_mid(torch.zeros(64, 4).T, 64),
         lambda: qmf_kernels.qmf_taps(torch.zeros(4, 45)),
+        lambda: heap_kernels.alloc_heap(torch.zeros(4, 52, dtype=torch.int64), 1.0),
+        lambda: heap_kernels.alloc_heap(torch.zeros(4, 51, dtype=torch.int32), 1.0),
+        lambda: fftjs_kernels.mdct_js(torch.zeros(4, 256), 128),
+        lambda: fftjs_kernels.mdct_js(torch.zeros(4, 255), 256),
+        lambda: fftjs_kernels.mdct_js(torch.zeros(4, 64, dtype=torch.float64), 64),
+        lambda: fftjs_kernels.magnitude_spectrum_js(torch.zeros(4, 64), 64),
+        lambda: fftjs_kernels.magnitude_spectrum_js(torch.zeros(128, 4).T, 128),
         lambda: bitpack_kernels.read_fields(
             torch.zeros(2, 128, dtype=torch.int32), torch.zeros(3, 5, dtype=torch.int32),
             torch.zeros(3, 5, dtype=torch.int32), 13, 107,
