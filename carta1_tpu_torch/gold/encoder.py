@@ -11,7 +11,8 @@ ops that each round once, or a hand kernel that repeats it:
   * block modes: the FFT magnitude of every band (kernel K6) and
     `transient.transient_score` (left-to-right f64 sums) against the
     thresholds of `EncoderOptions.band_thresholds`;
-  * windowed MDCT: long and short blocks both computed (K6) and selected
+  * windowed MDCT: long blocks for every frame and short blocks where the
+    band's mode is short (K6, the short rows masked on the card), selected
     per frame, the f64 window products stored to f32, the mid and high
     bands' spectra reversed;
   * BFU grouping and scale factors (`ops/coding`), the reference's heap
@@ -31,7 +32,7 @@ from carta1_tpu_torch import constants as C
 from carta1_tpu_torch.framedata import FrameData
 from carta1_tpu_torch.gold.coding import allocate_bits, find_scale_factors, quantize_js
 from carta1_tpu_torch.gold.fftjs import magnitude_spectrum_js
-from carta1_tpu_torch.gold.transforms import mdct, qmf_analysis_stream
+from carta1_tpu_torch.gold.transforms import mdct, mdct_masked, qmf_analysis_stream
 from carta1_tpu_torch.gold.transient import transient_score
 from carta1_tpu_torch.ops.coding import group_bfus
 from carta1_tpu_torch.ops.common import shift_frames
@@ -96,15 +97,26 @@ def mdct_inputs(bands: list, state: dict) -> tuple[list, torch.Tensor, dict]:
     return long_in, torch.cat(short_in, dim=-2), tails
 
 
+def short_block_mask(modes: torch.Tensor) -> torch.Tensor:
+    """bool [..., F, 16]: which of a frame's 4 + 4 + 8 short blocks belong to
+    a band in a short mode (int32 modes [..., F, 3] != 0), in the order of
+    `mdct_inputs`' short blocks."""
+    is_short = (modes != 0).unsqueeze(-1)                                   # [..., F, 3, 1]
+    return torch.cat([is_short[..., b, :].expand(*is_short.shape[:-2], n)
+                      for b, n in enumerate(C.MDCT_NUM_SHORT_BLOCKS)], dim=-1)
+
+
 def _mdct_bands(bands: list, modes: torch.Tensor, state: dict, plain: bool) -> tuple[torch.Tensor, dict]:
     """Windowed MDCT of the three bands: [..., F, 512] coefficients and the
-    new raw band tails.  Long and short blocks are both computed for every
-    frame and chosen by its mode, as in gold; the long blocks of bands 0
-    and 1 and the short blocks of all bands run as one batch each."""
+    new raw band tails.  The long blocks of every frame and the short
+    blocks of the frames whose band is in a short mode are transformed
+    (the other short rows are masked: zeros that the mode never selects),
+    and each frame takes one by its mode, as in gold; the long blocks of
+    bands 0 and 1 and the short blocks of all bands run as one batch each."""
     long_in, short_in, tails = mdct_inputs(bands, state)
     spec01 = mdct(torch.stack(long_in[:2]), C.MDCT_TRANSFORM_SIZES[0], plain)
     spec_long = [spec01[0], spec01[1].flip(-1), mdct(long_in[2], C.MDCT_TRANSFORM_SIZES[2], plain).flip(-1)]
-    spec_short = mdct(short_in, 64, plain).split(list(C.MDCT_NUM_SHORT_BLOCKS), dim=-2)
+    spec_short = mdct_masked(short_in, short_block_mask(modes), plain).split(list(C.MDCT_NUM_SHORT_BLOCKS), dim=-2)
     coeffs = []
     for b in range(3):
         short = spec_short[b] if b == 0 else spec_short[b].flip(-1)

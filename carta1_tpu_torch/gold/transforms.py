@@ -6,8 +6,9 @@ function reproduces the reference's arithmetic bit for bit on f32 data
 Float32Array), as separate PyTorch ops, each of which rounds once.  The
 inverse transforms are the exact decoder's (`ops/exact_decode.py`).
 
-`mdct_js_plain` is the plain version of kernel K6's MDCT entry
-(`ops/fftjs_kernels.py`); `mdct` launches K6 for a tensor on the card.
+`mdct_js_plain` and `mdct_js_masked_plain` are the plain versions of
+kernel K6's MDCT entries (`ops/fftjs_kernels.py`); `mdct` and
+`mdct_masked` launch K6 for a tensor on the card.
 
 Parity: codec/transforms/mdct.js, codec/transforms/qmf.js.
 """
@@ -72,6 +73,12 @@ def mdct_js_plain(x: torch.Tensor, size: int) -> torch.Tensor:
     return out
 
 
+def mdct_js_masked_plain(x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """The MDCT of size 64 of the rows of f32 [B, 64] whose bool [B] flag
+    is set, +0 in every other row: f32 [B, 32]."""
+    return torch.where(active.unsqueeze(-1), mdct_js_plain(x, 64), 0.0)
+
+
 def mdct(x: torch.Tensor, size: int, plain: bool = False) -> torch.Tensor:
     """f32 [..., size] -> [..., size/2]: kernel K6's wrapper (its plain
     version for a CPU tensor), or the plain version with `plain=True`."""
@@ -80,6 +87,20 @@ def mdct(x: torch.Tensor, size: int, plain: bool = False) -> torch.Tensor:
     from carta1_tpu_torch.ops import fftjs_kernels   # it imports this module's plain versions
 
     return fftjs_kernels.mdct_js(x.reshape(-1, size).contiguous(), size).reshape(*x.shape[:-1], size >> 1)
+
+
+def mdct_masked(x: torch.Tensor, active: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """f32 [..., 64], bool [...] -> [..., 32]: the MDCT of size 64 where
+    `active`, zeros elsewhere; kernel K6's masked entry (its plain version
+    for a CPU tensor), or the plain version with `plain=True`."""
+    flat, mask = x.reshape(-1, 64).contiguous(), active.reshape(-1).contiguous()
+    if plain:
+        out = mdct_js_masked_plain(flat, mask)
+    else:
+        from carta1_tpu_torch.ops import fftjs_kernels
+
+        out = fftjs_kernels.mdct_js_masked(flat, mask)
+    return out.reshape(*x.shape[:-1], 32)
 
 
 def qmf_analysis_stream(signal: torch.Tensor, delay: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

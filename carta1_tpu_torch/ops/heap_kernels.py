@@ -14,13 +14,18 @@ The heap, for one frame:
   * while bits remain: take the root; if its next step costs more than
     what remains, pop it (the last entry to the root, then sift);
     otherwise pay, step its word length, and re-price the root and sift,
-    or pop it at the top word length.
+    or pop it at the top word length.  Once fewer bits remain than the
+    cheapest step of any BFU (`MIN_STEP_BITS`), every further root would
+    be popped without a step, so both versions stop there.
 Priorities come from `tables.heap_priority_table(bias)`, made on the host
-by gold's own NumPy operations, so neither version computes one.
+by gold's own NumPy operations, so neither version computes one; both
+compare their dense ranks (`tables.heap_rank_table`), which order every
+pair as the priorities do.
 
-CUDA kernel (`csrc/alloc_heap.cu`): one thread per frame, its heap in
-shared memory.  Plain version: the same heap batched over frames, each
-root step, pop and sift as masked [F, 52] tensor ops.
+CUDA kernel (`csrc/alloc_heap.cu`): one thread per frame, one warp per
+block, its heap of 16-bit keys (rank << 6 | BFU) in shared memory.  Plain
+version: the same heap batched over frames, each root step, pop and sift
+as masked [F, 52] tensor ops.
 """
 
 from __future__ import annotations
@@ -33,27 +38,48 @@ import torch
 
 from carta1_tpu_torch import kernels
 from carta1_tpu_torch.constants import MAX_WORD_LENGTH_INDEX, NUM_BFUS, SPECS_PER_BFU, WORD_LENGTH_BITS
-from carta1_tpu_torch.tables import RDO_BUDGET, heap_priority_table
+from carta1_tpu_torch.tables import RDO_BUDGET, heap_rank_table
 
-BLOCK_FRAMES = 64            # frames (threads) per block of csrc/alloc_heap.cu
+BLOCK_FRAMES = 32            # frames (threads) per block of csrc/alloc_heap.cu: one warp
 _HEAP_LEVELS = 6             # a heap of 52 entries is 6 levels deep
-# the kernel's constants, read from host memory at each launch
-_HOST_SPECS = np.ascontiguousarray(SPECS_PER_BFU, dtype=np.int32)
-_HOST_BITS = np.ascontiguousarray(WORD_LENGTH_BITS, dtype=np.int32)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = kernels.library("alloc_heap")
     fn = lib.carta1_alloc_heap
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 @functools.lru_cache(maxsize=None)
-def _priorities(bias: float, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(heap_priority_table(bias).copy()).to(device)      # f64 [64, 15]
+def _ranks(bias: float, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(heap_rank_table(bias).astype(np.int64)).to(device)      # int64 [64, 15]
+
+
+def cost_table() -> np.ndarray:
+    """int16 [52, 16]: the bits of BFU b's step w -> w + 1,
+    (WORD_LENGTH_BITS[w + 1] - WORD_LENGTH_BITS[w]) * SPECS_PER_BFU[b], and 0
+    at the top word length w = 15.  Step 0 -> 1 adds bits, so the kernel
+    reads a BFU's slots (SPECS_PER_BFU[b] > 0) as cost[b, 0] > 0."""
+    assert WORD_LENGTH_BITS[1] > WORD_LENGTH_BITS[0]
+    steps = np.append(np.diff(WORD_LENGTH_BITS.astype(np.int64)), 0)
+    return (SPECS_PER_BFU.astype(np.int64)[:, None] * steps[None, :]).astype(np.int16)
+
+
+# the cheapest step of any BFU: with fewer bits left, every root is popped
+# without a step, so both versions stop there (the word lengths are final)
+MIN_STEP_BITS = int(cost_table()[cost_table() > 0].min())
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(bias: float, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the kernel reads: the rank table with a zero column appended,
+    uint16 [64, 16] (held as int16), and `cost_table()`, on `device`."""
+    rank = np.zeros((64, 16), np.uint16)
+    rank[:, :MAX_WORD_LENGTH_INDEX] = heap_rank_table(bias)
+    return torch.from_numpy(rank.view(np.int16)).to(device), torch.from_numpy(cost_table()).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,14 +95,21 @@ def _check(sf_idx: torch.Tensor) -> None:
         raise ValueError(f"alloc_heap: need int32 [F, {NUM_BFUS}] scale factor indices, got {tuple(sf_idx.shape)}")
 
 
-def alloc_heap_plain(sf_idx: torch.Tensor, allocation_bias: float, budget: int = RDO_BUDGET) -> torch.Tensor:
+def alloc_heap_plain(sf_idx: torch.Tensor, allocation_bias: float, budget: int = RDO_BUDGET,
+                     counts: dict | None = None) -> torch.Tensor:
     """Plain version of `alloc_heap`: int32 [F, 52] scale factor indices
     (0..63) -> int32 [F, 52] word lengths, the heap of every frame stepped
-    together until none has bits and entries left (one host sync a step)."""
+    together until none has entries and the bits for a step left (one host
+    sync a step).
+
+    With a dict `counts`, it receives int64 [F] tensors of what each
+    frame's serial chain holds: "steps" (accepted steps), "pops" and
+    "levels" (heap levels whose children a sift compared, heapify
+    included)."""
     _check(sf_idx)
     dev = sf_idx.device
     nframes = sf_idx.shape[0]
-    pri_tab = _priorities(float(allocation_bias), dev)
+    pri_tab = _ranks(float(allocation_bias), dev)
     wlb, sizes = _step_tables(dev)
     sf = sf_idx.long()
     rows = torch.arange(nframes, device=dev)
@@ -85,8 +118,9 @@ def alloc_heap_plain(sf_idx: torch.Tensor, allocation_bias: float, budget: int =
     valid = (sf > 0) & (sizes > 0)
     n = torch.count_nonzero(valid, dim=1)
     heap_idx = torch.sort((~valid).to(torch.int32), dim=1, stable=True).indices      # [F, 52]
-    heap_pri = pri_tab[sf.gather(1, heap_idx), 0]                                     # [F, 52] f64
+    heap_pri = pri_tab[sf.gather(1, heap_idx), 0]                                     # [F, 52] ranks
     wl = torch.zeros((nframes, NUM_BFUS), dtype=torch.int64, device=dev)
+    tally = {k: torch.zeros(nframes, dtype=torch.int64, device=dev) for k in ("steps", "pops", "levels")}
 
     def sift_down(start: int, active: torch.Tensor) -> None:
         pos = torch.full((nframes,), start, dtype=torch.int64, device=dev)
@@ -95,6 +129,7 @@ def alloc_heap_plain(sf_idx: torch.Tensor, allocation_bias: float, budget: int =
         for _ in range(_HEAP_LEVELS):
             left = 2 * pos + 1
             right = left + 1
+            tally["levels"] += moving & (left < n)
             lp = heap_pri[rows, left.clamp(max=NUM_BFUS - 1)]
             rp = heap_pri[rows, right.clamp(max=NUM_BFUS - 1)]
             take_l = (left < n) & (lp > pv)
@@ -113,7 +148,7 @@ def alloc_heap_plain(sf_idx: torch.Tensor, allocation_bias: float, budget: int =
 
     remaining = torch.full((nframes,), budget, dtype=torch.int64, device=dev)
     while True:
-        live = (remaining > 0) & (n > 0)
+        live = (remaining >= MIN_STEP_BITS) & (n > 0)
         if not bool(live.any()):
             break
         bfu = heap_idx[:, 0]
@@ -126,6 +161,8 @@ def alloc_heap_plain(sf_idx: torch.Tensor, allocation_bias: float, budget: int =
         after = (nxt + 1).clamp(max=MAX_WORD_LENGTH_INDEX)
         reprice = pays & (nxt < MAX_WORD_LENGTH_INDEX) & (wlb[after] - wlb[nxt] > 0)
         pop = live & ~reprice
+        tally["steps"] += pays
+        tally["pops"] += pop
         last = (n - 1).clamp(min=0)
         root_pri = torch.where(reprice, pri_tab[sf[rows, bfu], nxt.clamp(max=MAX_WORD_LENGTH_INDEX - 1)],
                                heap_pri[:, 0])
@@ -133,6 +170,8 @@ def alloc_heap_plain(sf_idx: torch.Tensor, allocation_bias: float, budget: int =
         heap_idx[:, 0] = torch.where(pop, heap_idx[rows, last], bfu)
         n = torch.where(pop, n - 1, n)
         sift_down(0, (reprice | pop) & (n > 0))
+    if counts is not None:
+        counts.update(tally)
     return wl.to(torch.int32)
 
 
@@ -147,10 +186,12 @@ def alloc_heap(sf_idx: torch.Tensor, allocation_bias: float, budget: int = RDO_B
     out = torch.empty((sf_idx.shape[0], NUM_BFUS), dtype=torch.int32, device=sf_idx.device)
     if sf_idx.shape[0] == 0:
         return out
-    pri_tab = _priorities(float(allocation_bias), sf_idx.device)
+    if sf_idx.data_ptr() % 16:                          # rows are read in 16-byte pieces
+        sf_idx = sf_idx.clone()
+    rank, cost = _kernel_tables(float(allocation_bias), sf_idx.device)
     lib, fn = _kernel()
-    err = kernels.launch(fn, sf_idx.device, kernels.ptr(sf_idx), kernels.ptr(pri_tab), kernels.ptr(out),
-                         _HOST_SPECS.ctypes.data, _HOST_BITS.ctypes.data, sf_idx.shape[0], budget)
+    err = kernels.launch(fn, sf_idx.device, kernels.ptr(sf_idx), kernels.ptr(rank), kernels.ptr(cost),
+                         kernels.ptr(out), sf_idx.shape[0], budget, MIN_STEP_BITS)
     kernels.check(lib, err, "alloc_heap")
     kernels.count("alloc_heap")
     return out

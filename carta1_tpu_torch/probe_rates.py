@@ -13,7 +13,9 @@ rounds and widens every value after every FFT stage and K2 widens every
 sample it reads, so these rates, not the data sheet's FLOP/s, are what
 their times are read against.  With `--scaling` it also times K1 and K2
 over a range of batches, which separates a kernel's fixed cost (launch,
-ramp) from its cost per row.  Needs the card; not part of the decode path.
+ramp) from its cost per row.  `chip_smoke.py` calls `measure` for the
+conversion rate in K1's and K6's bounds.  Needs the card; not part of the
+decode path.
 """
 
 from __future__ import annotations
@@ -50,6 +52,38 @@ def scaling() -> None:
             print(f"qmf_taps s {s} batch {batch}: {ms:.4f} ms")
 
 
+PER_LAUNCH = BLOCKS * THREADS * CHAINS * ITERS          # of each operation a mode names, per launch
+
+
+def measure(names=MODES) -> dict[str, float]:
+    """ms per launch of each named loop on the current card (one warm-up
+    launch, then the mean of three)."""
+    lib = kernels.library("probe_rates")
+    fn = lib.carta1_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(BLOCKS * THREADS, dtype=torch.float64, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    times = {}
+    for name in names:
+        mode = MODES.index(name)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for timed in (False, True):
+            start.record()
+            for _ in range(3 if timed else 1):
+                kernels.check(lib, fn(kernels.ptr(out), mode, BLOCKS, ITERS, stream), "probe_rates")
+            end.record()
+            torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end) / 3
+    return times
+
+
+def conversion_rate(ms_round_trip: float) -> float:
+    """Conversions per second (a rounding and a widening count as two) of
+    the round-trip loop that took `ms_round_trip` per launch."""
+    return 2 * PER_LAUNCH / (ms_round_trip * 1e-3)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scaling", action="store_true", help="also time K1 and K2 over batch sizes")
@@ -57,31 +91,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_rates: CUDA is not available; this script needs the GPU", file=sys.stderr)
         return 2
-    lib = kernels.library("probe_rates")
-    fn = lib.carta1_probe
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty(BLOCKS * THREADS, dtype=torch.float64, device="cuda")
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    per_launch = BLOCKS * THREADS * CHAINS * ITERS          # of each operation the mode names
-    times = {}
-    for mode, name in enumerate(MODES):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        for timed in (False, True):                         # one warm-up launch, then three timed
-            start.record()
-            for _ in range(3 if timed else 1):
-                kernels.check(lib, fn(kernels.ptr(out), mode, BLOCKS, ITERS, stream), "probe_rates")
-            end.record()
-            torch.cuda.synchronize()
-        times[name] = start.elapsed_time(end) / 3
-        print(f"{name}: {times[name]:.4f} ms per launch, {per_launch / times[name] / 1e9:.3f} T/s of each operation named")
+    times = measure()
+    for name in MODES:
+        print(f"{name}: {times[name]:.4f} ms per launch, {PER_LAUNCH / times[name] / 1e9:.3f} T/s of each operation named")
+    print(f"conversions (rounding and widening counted apart): {conversion_rate(times['round+widen']) / 1e12:.3f} T/s")
     parts = times["dadd"] + times["round+widen"]
     larger = max(times["dadd"], times["round+widen"])
     mix = times["dadd & round+widen"]
     print(f"mix {mix:.4f} ms against sum of parts {parts:.4f} ms and larger part {larger:.4f} ms")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": smi, "per_launch": per_launch, "ms": times}))
+    print(json.dumps({"card": smi, "per_launch": PER_LAUNCH, "ms": times}))
     if args.scaling:
         scaling()
     return 0

@@ -311,3 +311,22 @@ def heap_priority_table(bias: float) -> np.ndarray:
             out[sf, cur] = eff * (f1 - C.INV_POWER_OF_TWO[b2]) / (b2 - b1)
     out.setflags(write=False)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def heap_rank_table(bias: float) -> np.ndarray:
+    """uint16 [64, 15]: the dense rank of each entry of
+    `heap_priority_table(bias)` among all its entries.  Equal priorities get
+    equal ranks and a larger priority a larger rank, so every strict
+    comparison of the reference's heap gives the same answer on ranks as on
+    the f64 priorities, and ties still fall to heap-array order.  Ranks are
+    below 1024 (at most 960 distinct values), so a rank and a BFU index fit
+    one 16-bit heap key (`csrc/alloc_heap.cu`)."""
+    pri = heap_priority_table(bias)
+    if not np.isfinite(pri).all():
+        raise ValueError(f"heap priorities at bias {bias} are not all finite: they cannot be ranked")
+    _, rank = np.unique(pri, return_inverse=True)
+    out = rank.reshape(pri.shape).astype(np.uint16)
+    assert int(out.max()) < 1024
+    out.setflags(write=False)
+    return out

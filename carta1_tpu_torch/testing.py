@@ -466,6 +466,15 @@ def heap_edge_cases(block: int) -> list[tuple[str, np.ndarray, int]]:
     return cases
 
 
+# row masks of K6's masked short MDCT (`fftjs_kernels.mdct_js_masked`): name -> bool [rows]
+ROW_MASKS = {
+    "all off": lambda n: np.zeros(n, bool),
+    "all on": lambda n: np.ones(n, bool),
+    "alternating": lambda n: np.arange(n) % 2 == 1,
+    "first and last": lambda n: np.isin(np.arange(n), [0, n - 1]),
+}
+
+
 def heap_edge_peaks(sf_idx: np.ndarray) -> np.ndarray:
     """f32 [F, 52, 20] BFU data whose scale factor indices (by the gold
     engine's ceil(3 * (log2(peak) + 21))) are `sf_idx`: each BFU's peak is

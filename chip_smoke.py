@@ -9,7 +9,7 @@ Phases (each raises on failure; nothing is caught):
   2. build: compiles every kernel (K1 IMDCT at sizes 64/256/512, K2 QMF
      taps, K3 field read, K4 the two bit allocators, K5 the reference's
      heap allocator, K6 the fft.js forward MDCT and magnitude spectrum)
-     from carta1_tpu_torch/csrc;
+     and the rate probe from carta1_tpu_torch/csrc, all nvcc runs at once;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the first stereo 8192-frame chunk of the transcode gives it,
      and on edge inputs (batches around a block's tile, small widths, +0,
@@ -17,7 +17,10 @@ Phases (each raises on failure; nothing is caught):
      NaN and inf coefficients, silent and all-63 frames, exact ties across
      BFUs, plateaus of the hull, each at biases 0.7, 1.0 and 2.0): 0
      differing words allowed; kernel, plain and library-call times, the
-     kernel's bound, and the time of an empty launch;
+     time of an empty launch, and the kernel's bound: the largest of its
+     bytes at the memory rate, its arithmetic at the data sheet's rate and,
+     for K1 and K6, its f32 <-> f64 conversions at the rate the round-trip
+     loop of csrc/probe_rates.cu measures in this run;
   4. the golden fixture decoded to int16 on the card equals
      tests/fixtures/golden_decode.npz exactly;
   5. the encoder on the card against tests/fixtures/torch_encode_expect.npz
@@ -78,7 +81,11 @@ Phases (each raises on failure; nothing is caught):
      the profiler, the share of fields equal to phase 6's batched engine,
      the smallest margin of a transient score to its threshold; (d) K5 and
      K6 against their plain versions in phase 3's manner, at (c)'s first
-     chunk's shapes and on edge inputs.
+     chunk's shapes and on edge inputs (K6's short MDCT masked by that
+     chunk's modes, and under all-off, all-on, alternating and
+     first-and-last masks; also every row transformed), with K5's serial
+     chain per frame counted by its plain version: accepted steps, pops,
+     compared sift levels, and the mean over warps of a warp's longest.
 
 The last lines are a JSON `kernels` line, the card's name and power limit,
 and the result line.  The full record (every timing, the profile) goes to
@@ -138,10 +145,62 @@ def _mismatch(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
     return int((~same).sum()), float(err.max()) if err.numel() else 0.0
 
 
-def _bound_ms(nbytes: float, ops: float, rate: float = PEAK_F64_S) -> tuple[float, str]:
-    """The least time for the bytes at the memory rate and the operations at `rate`."""
-    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / rate * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def _bound_ms(nbytes: float, ops: float, rate: float = PEAK_F64_S, conversions: float = 0.0,
+              conv_rate: float = float("inf")) -> tuple[float, str, str]:
+    """The least time for the bytes at the memory rate, the operations at
+    `rate` and the f32 <-> f64 conversions at `conv_rate` (conversions per
+    second, measured in this run): (ms, "bytes" or "operations", which
+    term: "bytes", "arithmetic" or "conversions")."""
+    terms = {"bytes": nbytes / PEAK_BYTES_S * 1e3, "arithmetic": ops / rate * 1e3,
+             "conversions": conversions / conv_rate * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
+def _imdct_conversions(rows: int, n: int) -> int:
+    """K1's f32 <-> f64 conversions for rows of an n-point IMDCT core: the
+    pre-twiddle widens 2 samples and rounds 2 values per point, each of the
+    log2(n) stages widens and rounds the 2n values of a row (4n), the
+    post-twiddle widens 2 and rounds 2 per point."""
+    return rows * (8 * n + 4 * n * (n.bit_length() - 1))
+
+
+def _fftjs_conversions(kind: str, rows: int, n: int) -> int:
+    """K6's conversions for rows of an n-point transform: 4n per stage; the
+    MDCT's pre-twiddle widens 4 samples and rounds 2 values per point and
+    its post-twiddle widens 2 and rounds 2; the magnitude widens 2 and
+    rounds 1 per bin of n/2."""
+    stages = 4 * n * (n.bit_length() - 1)
+    return rows * (stages + (10 * n if kind == "mdct" else 3 * n // 2))
+
+
+def _digest(units: torch.Tensor, pcm: torch.Tensor) -> dict:
+    """SHA-256 of phase 6's units and int16 samples, as bytes on the host."""
+    import hashlib
+
+    return {k: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest() for k, t in (("units", units), ("int16", pcm))}
+
+
+def phase6_digest() -> dict:
+    """Phase 6's transcode alone (the same stream, chunks and options), run
+    with whichever `carta1_tpu_torch` is first on sys.path, and its digest:
+    the way to hold another tree's main path against this one's."""
+    from carta1_tpu_torch import EncoderOptions, testing
+    from carta1_tpu_torch.ops.pcm import float_to_int16
+    from carta1_tpu_torch.processor import _decode_batch_dev, _encode_batch_dev
+
+    dev = torch.device("cuda")
+    source = testing.synth_audio(CHUNK * CHUNKS, 2)
+    pcm16 = float_to_int16(torch.from_numpy(source)).numpy().reshape(2, CHUNK * CHUNKS, 512)
+    est = dst = None
+    units_out, pcm_out = [], []
+    for k in range(CHUNKS):
+        x = torch.from_numpy(np.ascontiguousarray(pcm16[:, k * CHUNK:(k + 1) * CHUNK])).to(dev)
+        units, est = _encode_batch_dev(x, EncoderOptions(), est)
+        pcm, dst = _decode_batch_dev(units, dst, to_i16=True)
+        units_out.append(units)
+        pcm_out.append(pcm)
+    return _digest(torch.cat(units_out, dim=1), torch.cat(pcm_out, dim=1))
 
 
 def _spectra(rng: np.random.Generator, rows: int, cols: int, dev) -> torch.Tensor:
@@ -648,14 +707,15 @@ def sharded_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, opt
 
 
 def exact_phase(pcm16: np.ndarray, units: torch.Tensor, options, fixtures: str, golden_units: np.ndarray,
-                golden: np.ndarray, dev: torch.device, check, rows: list) -> dict:
+                golden: np.ndarray, dev: torch.device, check, rows: list, conv_rate: float) -> dict:
     """Phase 11: the exact engine on the card.  pcm16 is phase 6's stream
     ([2, F, 512] int16) and `units` its batched-engine units on the card;
     `check` is phase 3's kernel check, which appends K5's and K6's rows to
     `rows`."""
     from carta1_tpu_torch import EncoderOptions, decode_units, encode_pcm, kernels, testing
     from carta1_tpu_torch.gold import fftjs, transforms
-    from carta1_tpu_torch.gold.encoder import analysis_bands, encoder_init_state, exact_analysis, mdct_inputs
+    from carta1_tpu_torch.gold.encoder import (analysis_bands, encoder_init_state, exact_analysis, mdct_inputs,
+                                               short_block_mask)
     from carta1_tpu_torch.io.aea import deinterleave_stereo
     from carta1_tpu_torch.ops import fftjs_kernels, heap_kernels
     from carta1_tpu_torch.ops.bitpack import unpack_frames
@@ -785,7 +845,7 @@ def exact_phase(pcm16: np.ndarray, units: torch.Tensor, options, fixtures: str, 
     # 11d. K5 and K6 against their plain versions at the first chunk's shapes and on edge inputs
     pcm0 = int16_to_float(upload(0))
     st0 = encoder_init_state(dev, nch)
-    _, sf, _, _, _ = exact_analysis(pcm0, st0, options)
+    _, sf, modes0, _, _ = exact_analysis(pcm0, st0, options)
     sf = sf.reshape(-1, 52).contiguous()
     bands, _ = analysis_bands(pcm0, st0)
     long_in, short_in, _ = mdct_inputs(bands, st0)
@@ -794,21 +854,57 @@ def exact_phase(pcm16: np.ndarray, units: torch.Tensor, options, fixtures: str, 
                   for _, c, budget in testing.heap_edge_cases(heap_kernels.BLOCK_FRAMES) for x in (0.7, 1.0, 2.0)]
     print("alloc_heap: library_ms null -- no PyTorch call runs a budgeted greedy heap")
     check("alloc_heap", [(sf, bias)], heap_kernels.alloc_heap_plain, heap_kernels.alloc_heap,
-          sf.numel() * 8 + 64 * 15 * 8, 0, reps=50, edge_cases=[(sf, b) for b in (0.7, 2.0)] + heap_edges)
-    wl = heap_kernels.alloc_heap(sf, bias)
-    rows[-1]["heap_steps_per_frame"] = float(wl.double().sum(dim=1).mean())
+          sf.numel() * 8 + 64 * 16 * 2 + 52 * 16 * 2, 0, reps=50,
+          edge_cases=[(sf, b) for b in (0.7, 2.0)] + heap_edges)
+    # what the time buys: each frame's serial chain, from the plain version on the same input
+    counts: dict = {}
+    heap_kernels.alloc_heap_plain(sf, bias, counts=counts)
+    chain = counts["steps"] + counts["pops"] + counts["levels"]
+    warps = torch.nn.functional.pad(chain, (0, -chain.numel() % heap_kernels.BLOCK_FRAMES)).view(
+        -1, heap_kernels.BLOCK_FRAMES)
+    per_frame = {k: float(v.double().mean()) for k, v in counts.items()}
+    per_frame |= {"chain": float(chain.double().mean()), "warp_longest_chain": float(warps.amax(dim=1).double().mean())}
+    rows[-1]["heap_per_frame"] = per_frame
+    print(f"alloc_heap per frame of {sf.shape[0]}: accepted steps {per_frame['steps']:.2f}, pops {per_frame['pops']:.2f}, "
+          f"sift levels compared {per_frame['levels']:.2f} (heapify included); chain (steps + pops + levels) "
+          f"{per_frame['chain']:.2f}, mean over warps of a warp's longest chain {per_frame['warp_longest_chain']:.2f}; "
+          f"{rows[-1]['ms'] * 1e6 / per_frame['warp_longest_chain']:.1f} ns per link of the longest chains")
+
     spectra = {128: torch.stack([bands[0], bands[1]]).reshape(-1, 128).contiguous(),
                256: bands[2].reshape(-1, 256).contiguous()}
-    mdcts = {256: torch.stack(long_in[:2]).reshape(-1, 256).contiguous(), 512: long_in[2].reshape(-1, 512).contiguous(),
-             64: short_in.reshape(-1, 64).contiguous()}
-    for size in fftjs_kernels.MDCT_SIZES:
+    mdcts = {256: torch.stack(long_in[:2]).reshape(-1, 256).contiguous(), 512: long_in[2].reshape(-1, 512).contiguous()}
+
+    def mdct_ops(rows_: int, n: int) -> int:
+        return rows_ * (8 * n + 10 * (n // 2) * (n.bit_length() - 1) + 6 * n)
+
+    # the short MDCT, masked by the frames' modes as the encoder runs it
+    x64 = short_in.reshape(-1, 64).contiguous()
+    active = short_block_mask(modes0).reshape(-1).contiguous()
+    n_on, table_bytes = int(active.sum()), (32 + 2 * 15) * 8
+    edges = [(torch.from_numpy(testing.edge_rows(b, 64, sd, 1e30)).to(dev), torch.from_numpy(m(b)).to(dev))
+             for b, sd in testing.edge_cases(fftjs_kernels.ROWS[("mdct", 64)]) for m in testing.ROW_MASKS.values()]
+    for x, _ in edges:
+        if _mismatch(fftjs_kernels.mdct_js(x, 64), transforms.mdct_js_plain(x, 64))[0]:
+            raise AssertionError(f"fft_js_mdct_64 unmasked: words differ from the plain version on {tuple(x.shape)}")
+    check("fft_js_mdct_64", [(x64, active)], transforms.mdct_js_masked_plain, fftjs_kernels.mdct_js_masked,
+          active.numel() + n_on * 64 * 4 + x64.shape[0] * 32 * 4 + table_bytes, mdct_ops(n_on, 16), reps=50,
+          library=lambda: torch.fft.fft(x64), edge_cases=edges,
+          conversions=_fftjs_conversions("mdct", n_on, 16))
+    all_ms = kernels.time_ms(lambda: fftjs_kernels.mdct_js(x64, 64), 50)[0]
+    all_bound = _bound_ms(x64.numel() * 6 + table_bytes, mdct_ops(x64.shape[0], 16), PEAK_F64_S,
+                          _fftjs_conversions("mdct", x64.shape[0], 16), conv_rate)
+    rows[-1] |= {"active_rows": n_on, "all_rows_ms": all_ms, "all_rows_bound_ms": all_bound[0],
+                 "all_rows_bound_term": all_bound[2]}
+    print(f"fft_js_mdct_64: {n_on} of {x64.shape[0]} rows active; every row transformed (the unmasked entry, "
+          f"{len(edges)} edge inputs equal too) {all_ms:.4f} ms against a bound of {all_bound[0]:.4f} ({all_bound[2]})")
+    for size in fftjs_kernels.MDCT_SIZES[1:]:
         x, n = mdcts[size], size // 4
-        ops = x.shape[0] * (8 * n + 10 * (n // 2) * (n.bit_length() - 1) + 6 * n)
         edges = [(torch.from_numpy(testing.edge_rows(b, size, sd, 1e30)).to(dev), size)
                  for b, sd in testing.edge_cases(fftjs_kernels.ROWS[("mdct", size)])]
         check(f"fft_js_mdct_{size}", [(x, size)], transforms.mdct_js_plain, fftjs_kernels.mdct_js,
-              x.numel() * 4 * 3 // 2 + (size // 2 + 2 * (n - 1)) * 8, ops, reps=50,
-              library=lambda x=x: torch.fft.fft(x), edge_cases=edges)
+              x.numel() * 4 * 3 // 2 + (size // 2 + 2 * (n - 1)) * 8, mdct_ops(x.shape[0], n), reps=50,
+              library=lambda x=x: torch.fft.fft(x), edge_cases=edges,
+              conversions=_fftjs_conversions("mdct", x.shape[0], n))
     for size in fftjs_kernels.SPECTRUM_SIZES:
         x, n = spectra[size], size
         ops = x.shape[0] * (10 * (n // 2) * (n.bit_length() - 1) + 4 * (n // 2))
@@ -816,8 +912,10 @@ def exact_phase(pcm16: np.ndarray, units: torch.Tensor, options, fixtures: str, 
                  for b, sd in testing.edge_cases(fftjs_kernels.ROWS[("spectrum", size)])]
         check(f"fft_js_spectrum_{size}", [(x, size)], fftjs.magnitude_spectrum_js_plain,
               fftjs_kernels.magnitude_spectrum_js, x.numel() * 4 * 3 // 2 + 2 * (n - 1) * 8, ops, reps=50,
-              library=lambda x=x: torch.fft.fft(x), edge_cases=edges)
-    print("fft_js: library_ms is torch.fft.fft of the same rows (a speed reference: it rounds elsewhere)")
+              library=lambda x=x: torch.fft.fft(x), edge_cases=edges,
+              conversions=_fftjs_conversions("spectrum", x.shape[0], n))
+    print("fft_js: library_ms is torch.fft.fft of the same rows (a speed reference: it rounds elsewhere); "
+          f"conversions at {conv_rate / 1e12:.4f} T/s, measured in this run on {_smi()}")
     for row in rows:
         row["launches_exact"] = launches[row["name"]]
         if row["name"] in EXACT_KERNELS:
@@ -834,7 +932,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs the GPU", file=sys.stderr)
         return 2
 
-    from carta1_tpu_torch import EncoderOptions, decode_units, encode_frames, encode_pcm, kernels, testing
+    from carta1_tpu_torch import EncoderOptions, decode_units, encode_frames, encode_pcm, kernels, probe_rates, testing
     from carta1_tpu_torch import constants as C
     from carta1_tpu_torch.constants import QMF_EVEN, QMF_ODD
     from carta1_tpu_torch.io.aea import read_aea
@@ -854,9 +952,10 @@ def main() -> int:
     print(f"card: {smi}")
     record["card"] = smi
 
-    # 2. build (all nvcc runs at once)
-    build_s = kernels.build()
-    print(f"build: {build_s:.2f} s for {', '.join(kernels.LIBRARIES)}")
+    # 2. build (all nvcc runs at once), the kernels and the rate probe
+    libraries = kernels.LIBRARIES + ("probe_rates",)
+    build_s = kernels.build(libraries)
+    print(f"build: {build_s:.2f} s for {', '.join(libraries)}")
     for lib, log in kernels.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -890,7 +989,8 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     rows = []
 
-    def check(kname, cases, plain_fn, kernel_fn, nbytes, ops, reps, library=None, edge_cases=(), rate=PEAK_F64_S):
+    def check(kname, cases, plain_fn, kernel_fn, nbytes, ops, reps, library=None, edge_cases=(), rate=PEAK_F64_S,
+              conversions=0):
         bad, err = 0, 0.0
         for case in edge_cases:
             m, _ = _mismatch(kernel_fn(*case), plain_fn(*case))
@@ -908,21 +1008,31 @@ def main() -> int:
         ms, host_ms = kernels.time_ms(lambda: [kernel_fn(*a) for a in cases], reps)
         plain_ms, _ = kernels.time_ms(lambda: [plain_fn(*a) for a in cases], max(2, reps // 10), warmup=1)
         lib_ms = kernels.time_ms(library, reps)[0] if library is not None else None
-        bound, by = _bound_ms(nbytes, ops, rate)
+        bound, by, term = _bound_ms(nbytes, ops, rate, conversions, conv_rate)
         src, replaces = kernels.KERNELS[kname]
         rows.append({
             "name": kname, "route": "cuda", "source": f"carta1_tpu_torch/csrc/{src}.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms, "host_ms": host_ms,
+            "bound_term": term, "bytes": nbytes, "arith_ops": ops, "conversions": conversions,
             "shapes": [[list(t.shape) for t in a if isinstance(t, torch.Tensor)] for a in cases],
         })
-        print(f"{kname}: 0 words differ from the plain version ({len(edge_cases)} edge inputs too); kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms {bound:.4f} ({by}) "
+        print(f"{kname}: 0 words differ from the plain version ({len(edge_cases)} edge inputs too); kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms {bound:.4f} ({term}) "
               f"library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)}")
 
     empty_ms, empty_host_ms = kernels.time_ms(lambda: kernels.empty_launch(dev), 200)
     print(f"empty launch through ctypes: {empty_ms:.4f} ms on the device, {empty_host_ms:.4f} ms of host time, "
           "each, back to back on one stream")
     record["empty_launch_ms"] = {"device": empty_ms, "host": empty_host_ms}
+
+    # the conversion rate that bounds K1 and K6, from the round-trip loop of csrc/probe_rates.cu
+    probe = probe_rates.measure(("dadd", "round+widen", "dadd & round+widen"))
+    conv_rate = probe_rates.conversion_rate(probe["round+widen"])
+    dadd_rate = probe_rates.PER_LAUNCH / (probe["dadd"] * 1e-3)
+    print(f"rates on {smi}: f32 <-> f64 conversions {conv_rate / 1e12:.4f} T/s (a rounding and a widening count "
+          f"apart), unfused f64 adds {dadd_rate / 1e12:.4f} T/s; both mixed {probe['dadd & round+widen']:.4f} ms "
+          f"against {probe['dadd']:.4f} + {probe['round+widen']:.4f} ms apart")
+    record["rates"] = {"card": smi, "ms": probe, "conversions_per_s": conv_rate, "dadd_per_s": dadd_rate}
 
     for size, batch in ((64, n64), (256, 2 * frames), (512, frames)):
         x = _spectra(rng, batch, size // 2, dev)
@@ -932,7 +1042,8 @@ def main() -> int:
         ops = batch * (12 * n + 10 * (n // 2) * (n.bit_length() - 1))
         table_bytes = (size // 2) * 8 + 2 * (n - 1) * 8
         check(f"imdct_exact_{size}", [(x, size)], imdct_kernels.imdct_mid_plain,
-              imdct_kernels.imdct_mid, x.numel() * 8 + table_bytes, ops, reps=50, edge_cases=edges)
+              imdct_kernels.imdct_mid, x.numel() * 8 + table_bytes, ops, reps=50, edge_cases=edges,
+              conversions=_imdct_conversions(batch, n))
 
     works = [(torch.from_numpy(rng.standard_normal((frames, 46 + 2 * s)).astype(np.float32)).to(dev),)
              for s in (128, 256)]
@@ -1109,6 +1220,8 @@ def main() -> int:
     if mu or mp:
         raise AssertionError(f"main path: {mu} unit bytes and {mp} int16 samples differ from the plain path")
     del units2, pcm2, units_p, pcm_p
+    digest = _digest(units, pcm)
+    print(f"main path: SHA-256 of the units {digest['units']}, of the int16 samples {digest['int16']}")
     short_total = (bitpack.unpack_frames(units.reshape(-1, 212)).block_modes != 0).sum(dim=0).tolist()
     if sum(short_total) == 0:
         raise AssertionError("main path: the encoder chose no short-mode frame")
@@ -1162,7 +1275,7 @@ def main() -> int:
                            "encode_repeat_seconds": enc_repeats, "decode_repeat_seconds": dec_repeats,
                            "plain_seconds": plain_wall, "channel_frames_per_s": fps, "launches": launches,
                            "short_frames_first_chunk": n_short, "short_frames": short_total,
-                           "psnr_db": stream_psnr, "upload_one_chunk_seconds": upload_s}
+                           "psnr_db": stream_psnr, "upload_one_chunk_seconds": upload_s, "digest": digest}
     for row in rows:
         path = PATHS.get(row["name"], "phase 6")
         row["launches"] = (launches_p5 if path == "phase 5" else launches)[row["name"]]
@@ -1228,7 +1341,8 @@ def main() -> int:
 
     # 11. the exact engine
     t11 = time.perf_counter()
-    record["phase11"] = exact_phase(pcm16, units, options, fixtures, golden_units, golden, dev, check, rows)
+    record["phase11"] = exact_phase(pcm16, units, options, fixtures, golden_units, golden, dev, check, rows,
+                                     conv_rate)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     record["kernels"] = rows

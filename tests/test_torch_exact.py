@@ -43,12 +43,12 @@ import carta1_tpu_torch as port
 from carta1_tpu_torch import EncoderOptions, cli, testing
 from carta1_tpu_torch.gold import coding, encoder, fftjs, transforms, transient
 from carta1_tpu_torch.io import streams, wav
-from carta1_tpu_torch.ops import heap_kernels
+from carta1_tpu_torch.ops import fftjs_kernels, heap_kernels
 from carta1_tpu_torch.ops.bitpack import pack_frames
 from carta1_tpu_torch.ops.coding import group_bfus
 from carta1_tpu_torch.ops.pcm import float_to_int16
 from carta1_tpu_torch.parallel import multihost
-from carta1_tpu_torch.tables import RDO_BUDGET, heap_priority_table
+from carta1_tpu_torch.tables import RDO_BUDGET, fft_tables, heap_priority_table, heap_rank_table, mdct_tables
 
 from test_golden import _golden_signal
 from test_torch_files import _KillAt
@@ -433,3 +433,256 @@ def test_exact_engine_round_trip_int16_equals_gold():
     want = jax_processor.decode_units(jax_processor.encode_pcm(i16.astype(np.float32) / 32768.0, engine="exact"),
                                       1, engine="exact")
     assert np.array_equal(got, jax_wav.float_to_int16(want))
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6 as the card runs them: rank keys, masks, the thread-to-data map
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bias", [0.5, 0.7, 1.0, 2.0, 3.0])
+def test_heap_rank_table_keeps_the_priority_order(bias):
+    """Every pair of entries compares the same way by rank as by f64
+    priority (equal ranks exactly where the priorities are equal), the
+    priorities are finite and every rank fits the kernel's 10 bits."""
+    pri = heap_priority_table(bias).reshape(-1)
+    rank = heap_rank_table(bias).reshape(-1).astype(np.int64)
+    assert np.isfinite(pri).all() and rank.max() < 1024 and heap_rank_table(bias).dtype == np.uint16
+    assert np.array_equal(np.sign(rank[:, None] - rank[None, :]), np.sign(pri[:, None] - pri[None, :]))
+
+
+@pytest.mark.parametrize("name,bias", sorted(EXPECT["units"]))
+def test_rank_keyed_heap_equals_gold_units(name, bias):
+    """The rank-keyed plain heap on the scale factors of the gold engine's
+    units gives their word lengths, frame for frame."""
+    fd = jax_unpack(EXPECT["units"][(name, bias)])
+    got = heap_kernels.alloc_heap_plain(_t(np.asarray(fd.scale_factors, np.int32)), bias).numpy()
+    assert np.array_equal(got, np.asarray(fd.word_lengths))
+
+
+def _heap_kernel_emulation(sf_idx: np.ndarray, bias: float, budget: int) -> np.ndarray:
+    """`csrc/alloc_heap.cu`'s loop for each frame, on its tables: 16-bit keys
+    (rank << 6 | BFU), a child winning only with key > (other | 63), key 0
+    in the slot past the last entry, the root key held between steps, one
+    sift per step, (sf << 4 | wl) per BFU, the [52, 16] cost table, and the
+    stop once fewer than the cheapest step's bits remain."""
+    rank = np.zeros((64, 16), np.int64)
+    rank[:, :15] = heap_rank_table(bias)
+    cost = heap_kernels.cost_table().astype(np.int64)
+    out = np.zeros(sf_idx.shape, np.int32)
+    for f, row in enumerate(sf_idx):
+        key = [0] * 53
+
+        def sift(i, n, k):
+            start, top = i, k
+            while 2 * i + 1 < n:
+                left = 2 * i + 1
+                kl, kr = key[left], key[left + 1]
+                right = kr > (kl | 63)
+                kc = kr if right else kl
+                if kc <= (k | 63):
+                    break
+                key[i] = kc
+                top = kc if i == start else top
+                i = left + right
+            key[i] = k
+            return top
+
+        sw = [int(min(max(s, 0), 63)) << 4 for s in row]
+        n = 0
+        for b, s in enumerate(row):
+            if s > 0 and cost[b, 0] > 0:
+                key[n] = (int(rank[s, 0]) << 6) | b
+                n += 1
+        key[n] = 0
+        for i in range(n // 2 - 1, -1, -1):
+            sift(i, n, key[i])
+        root, remaining = key[0], budget
+        while remaining >= heap_kernels.MIN_STEP_BITS and n > 0:
+            b = root & 63
+            v = sw[b]
+            w = v & 15
+            c, c_next = int(cost[b, w]), int(cost[b, w + 1])
+            k = (int(rank[v >> 4, w + 1]) << 6) | b
+            pop = c > remaining or c <= 0
+            if not pop:
+                remaining -= c
+                sw[b] = v + 1
+                pop = c_next <= 0
+            if pop:
+                n -= 1
+                k, key[n] = key[n], 0
+            if n > 0:
+                root = sift(0, n, k)
+        out[f] = [v & 15 for v in sw]
+    return out
+
+
+@pytest.mark.parametrize("bias", [0.7, 2.0])
+def test_heap_kernel_emulation_equals_the_plain_heap(bias):
+    """The kernel's control flow, emulated, on every K5 edge input and
+    budget: the plain version's word lengths (gold's, held above)."""
+    for name, sf, budget in testing.heap_edge_cases(heap_kernels.BLOCK_FRAMES):
+        want = heap_kernels.alloc_heap_plain(_t(sf), bias, budget).numpy()
+        assert np.array_equal(_heap_kernel_emulation(sf, bias, budget), want), (name, budget)
+
+
+def test_heap_plain_counts_its_chains():
+    """`counts` gets each frame's accepted steps (the word lengths' sum),
+    pops (every heap entry leaves it) and compared levels."""
+    sf = testing.heap_edge_cases(heap_kernels.BLOCK_FRAMES)[0][1]
+    counts = {}
+    wl = heap_kernels.alloc_heap_plain(_t(sf), 1.0, counts=counts).numpy()
+    assert np.array_equal(counts["steps"].numpy(), wl.sum(axis=1))
+    entries = (sf > 0).sum(axis=1)
+    assert (counts["pops"].numpy() <= entries).all() and (counts["levels"].numpy() >= 0).all()
+    assert int(counts["levels"].sum()) > 0
+
+
+@pytest.mark.parametrize("mask", sorted(testing.ROW_MASKS))
+def test_masked_short_mdct_plain_is_mdct_or_zero(mask):
+    """`mdct_js_masked`'s plain version: `mdct_js_plain` on active rows, +0
+    elsewhere; the wrapper on the CPU is that plain version."""
+    x = _rows(37, 64, 64)
+    active = testing.ROW_MASKS[mask](x.shape[0])
+    got = fftjs_kernels.mdct_js_masked(_t(x), _t(active)).numpy()
+    full = transforms.mdct_js_plain(_t(x), 64).numpy()
+    assert _same(got[active], full[active])
+    assert np.array_equal(got[~active].view(np.int32), np.zeros_like(got[~active]).view(np.int32))
+    assert _same(transforms.mdct_masked(_t(x), _t(active), plain=True).numpy(), got)
+
+
+def test_masked_mdct_wrapper_rejects_bad_masks():
+    x = torch.zeros(4, 64)
+    for mask in (torch.ones(4, dtype=torch.int32), torch.ones(5, dtype=torch.bool), torch.ones(2, 4, dtype=torch.bool)):
+        with pytest.raises(ValueError):
+            fftjs_kernels.mdct_js_masked(x, mask)
+    with pytest.raises(ValueError):
+        fftjs_kernels.mdct_js_masked(torch.zeros(4, 256), torch.ones(4, dtype=torch.bool))
+
+
+def _bitrev(v: int, bits: int) -> int:
+    return int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _position(bits: int, b: int, nb: int, j: int, v: int) -> int:
+    """`position<BITS, B, NB>(j, v)` of `csrc/fft_js.cu`."""
+    m, g = v & ((1 << nb) - 1), v >> nb
+    rest = (g << (bits - 3)) | j
+    return ((rest >> b) << (b + nb)) | (m << b) | (rest & ((1 << b) - 1))
+
+
+def _butterfly(er, ei, orr, oi, wr, wi):
+    o_r, o_i, e_r, e_i = (a.astype(np.float64) for a in (orr, oi, er, ei))
+    t_r = o_r * wr - o_i * wi
+    t_i = o_r * wi + o_i * wr
+    return ((e_r + t_r).astype(np.float32), (e_i + t_i).astype(np.float32),
+            (e_r - t_r).astype(np.float32), (e_i - t_i).astype(np.float32))
+
+
+def _k6_map(first, n: int, tw_re: np.ndarray, tw_im: np.ndarray):
+    """K6's thread-to-data map for an n-point FFT (n/8 threads of 8 values),
+    on a batch of rows.  `first(e)` gives element e's (re, im) [rows] f32.
+    Each pass runs stages B .. B+NB-1 (B = 0, 3, 6) on the values a thread
+    holds; between passes the values go through the exchange row's slots
+    (p + p // 8), each slot written once and read once per pass.  Returns
+    {FFT output position: (re, im)} after the last stage."""
+    bits, threads = n.bit_length() - 1, n // 8
+    passes = [(b, min(3, bits - b)) for b in range(0, bits, 3)]
+    re, im = {}, {}
+    for j in range(threads):                       # the first pass's positions 8j + v hold element bitrev(8j + v)
+        for v in range(8):
+            e = (_bitrev(v, 3) << (bits - 3)) | _bitrev(j, bits - 3)
+            assert e == _bitrev(8 * j + v, bits) and _position(bits, 0, 3, j, v) == 8 * j + v
+            re[j, v], im[j, v] = first(e)
+    for pi, (b, nb) in enumerate(passes):
+        if pi:                                     # load this pass's positions from the exchange row
+            assert sorted(_position(bits, b, nb, j, v) for j in range(threads) for v in range(8)) == list(range(n))
+            for j in range(threads):
+                for v in range(8):
+                    p = _position(bits, b, nb, j, v)
+                    re[j, v], im[j, v] = exchange.pop(p + (p >> 3))
+        for lb in range(nb):
+            q = b + lb
+            for j in range(threads):
+                for v in range(8):
+                    if v & (1 << lb):
+                        continue
+                    p, p2 = _position(bits, b, nb, j, v), _position(bits, b, nb, j, v | (1 << lb))
+                    assert p2 == p + (1 << q)                        # the butterfly's partner
+                    k = p & ((1 << q) - 1)
+                    if b == 0:
+                        assert k == v & ((1 << q) - 1)               # the kernel's compile-time first twiddles
+                    w = (1 << q) - 1 + k
+                    u = v | (1 << lb)
+                    re[j, v], im[j, v], re[j, u], im[j, u] = _butterfly(re[j, v], im[j, v], re[j, u], im[j, u],
+                                                                         tw_re[w], tw_im[w])
+        if pi < len(passes) - 1:                   # store into the exchange row
+            exchange = {}
+            for j in range(threads):
+                for v in range(8):
+                    p = _position(bits, b, nb, j, v)
+                    s = p + (p >> 3)
+                    assert s not in exchange and s < n + n // 8
+                    exchange[s] = (re[j, v], im[j, v])
+    b, nb = passes[-1]
+    outputs = {_position(bits, b, nb, j, v): (re[j, v], im[j, v]) for j in range(threads) for v in range(8)}
+    assert sorted(outputs) == list(range(n))
+    return outputs
+
+
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256])
+def test_fftjs_thread_map_emulation_equals_gold_fft(n):
+    """K6's map of points to threads, passes and exchange slots, emulated
+    with the kernel's f64 operations and f32 stores: gold's fft_js bit for
+    bit, on edge and random rows."""
+    _, tw_re, tw_im = fft_tables(n)
+    x_re, x_im = _rows(9, n, n), _rows(9, n, n + 7)
+    out = _k6_map(lambda e: (x_re[:, e], x_im[:, e]), n, tw_re, tw_im)
+    want = jax_fftjs.fft_js(x_re, x_im)
+    assert _same(np.stack([out[i][0] for i in range(n)], -1), want[0])
+    assert _same(np.stack([out[i][1] for i in range(n)], -1), want[1])
+
+
+@pytest.mark.parametrize("kind,size", [("mdct", 256), ("mdct", 512), ("spectrum", 128), ("spectrum", 256)])
+def test_fftjs_kernel_emulation_equals_gold(kind, size):
+    """The whole kernel's map: the MDCT's pre-twiddle read at each thread's
+    elements and its post-twiddle and interleave written from each thread's
+    outputs, or the spectrum's real input and its first n/2 magnitudes,
+    each output word written once: gold's transform bit for bit."""
+    x = _rows(9, size, size)
+    if kind == "mdct":
+        n = size // 4
+        sincos, _, tw_re, tw_im = mdct_tables(size)
+
+        def first(e):
+            i = 2 * e
+            xv = x.astype(np.float64)
+            if i < n:
+                a, b = xv[:, 3 * n - 1 - i] + xv[:, 3 * n + i], xv[:, n + i] - xv[:, n - 1 - i]
+            else:
+                a, b = xv[:, 3 * n - 1 - i] - xv[:, i - n], xv[:, n + i] + xv[:, 5 * n - 1 - i]
+            c, s = sincos[2 * e], sincos[2 * e + 1]
+            return (a * c + b * s).astype(np.float32), (b * c - a * s).astype(np.float32)
+    else:
+        n = size
+        _, tw_re, tw_im = fft_tables(n)
+
+        def first(e):
+            return x[:, e], np.zeros(x.shape[0], np.float32)
+
+    outputs = _k6_map(first, n, tw_re, tw_im)
+    got, written = {}, []
+    for i, (r, m) in outputs.items():
+        rv, iv = r.astype(np.float64), m.astype(np.float64)
+        if kind == "mdct":
+            c, s = sincos[2 * i], sincos[2 * i + 1]
+            got[2 * i] = (-rv * c - iv * s).astype(np.float32)
+            got[2 * n - 1 - 2 * i] = (-rv * s + iv * c).astype(np.float32)
+            written += [2 * i, 2 * n - 1 - 2 * i]
+        elif i < n // 2:
+            got[i] = np.sqrt(rv * rv + iv * iv).astype(np.float32)
+            written.append(i)
+    width = 2 * n if kind == "mdct" else n // 2
+    assert sorted(written) == list(range(width))
+    got = np.stack([got[k] for k in range(width)], -1)
+    want = jax_transforms.mdct(x, size) if kind == "mdct" else jax_fftjs.magnitude_spectrum_js(x, size)
+    assert _same(got, want)

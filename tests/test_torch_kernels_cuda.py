@@ -271,6 +271,56 @@ def test_fftjs_kernel_edge_inputs_match_plain(card, kind, size):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mask", sorted(testing.ROW_MASKS))
+def test_masked_short_mdct_kernel_edge_inputs_match_plain(card, mask):
+    """K6's masked MDCT of size 64 on its edge rows under each mask: the
+    active rows as the plain MDCT, the others +0; one counted launch."""
+    for batch, seed in testing.edge_cases(fftjs_kernels.ROWS[("mdct", 64)]):
+        x = torch.from_numpy(testing.edge_rows(batch, 64, seed, 1e30)).to(card)
+        active = torch.from_numpy(testing.ROW_MASKS[mask](batch)).to(card)
+        before = kernels.LAUNCHES["fft_js_mdct_64"]
+        got = fftjs_kernels.mdct_js_masked(x, active)
+        assert kernels.LAUNCHES["fft_js_mdct_64"] == before + 1
+        assert _same_bits(got, transforms.mdct_js_masked_plain(x, active)), (batch, seed)
+        assert not bool(got[~active].view(torch.int32).any()), (batch, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [0.7, 1.0, 2.0])
+def test_heap_kernel_warps_mixing_tied_heaps(card, bias):
+    """K5 on warps whose frames hold heaps of 0, 1, 2 and 52 entries, every
+    entry of a frame at one scale factor: all its priorities tie at every
+    step, so heap-array order alone decides."""
+    rng = np.random.default_rng(11)
+    frames = 4 * heap_kernels.BLOCK_FRAMES + 5
+    sf = np.zeros((frames, 52), np.int32)
+    for f in range(frames):
+        size = (0, 1, 2, 52)[(f * 7 + f // 3) % 4]
+        sf[f, rng.choice(52, size, replace=False)] = rng.integers(1, 64)
+    s = torch.from_numpy(sf).to(card)
+    assert torch.equal(heap_kernels.alloc_heap(s, bias), heap_kernels.alloc_heap_plain(s, bias))
+
+
+@pytest.mark.cuda
+def test_heap_and_fftjs_kernels_at_full_chunk_shapes(card):
+    """K5 and every K6 entry at a stereo 8192-frame chunk's shapes of the
+    exact engine, the short MDCT masked with about 1% of its rows active."""
+    rng = np.random.default_rng(12)
+    sf = torch.from_numpy(rng.integers(0, 64, (16384, 52)).astype(np.int32)).to(card)
+    assert torch.equal(heap_kernels.alloc_heap(sf, 1.0), heap_kernels.alloc_heap_plain(sf, 1.0))
+    x64 = _spectra(262144, 64, 13).to(card)
+    active = torch.from_numpy(rng.random(262144) < 0.01).to(card)
+    assert _same_bits(fftjs_kernels.mdct_js_masked(x64, active), transforms.mdct_js_masked_plain(x64, active))
+    for size, rows in ((256, 32768), (512, 16384)):
+        x = _spectra(rows, size, size).to(card)
+        assert _same_bits(fftjs_kernels.mdct_js(x, size), transforms.mdct_js_plain(x, size)), size
+    for size, rows in ((128, 32768), (256, 16384)):
+        x = _spectra(rows, size, size + 1).to(card)
+        got = fftjs_kernels.magnitude_spectrum_js(x, size)
+        assert _same_bits(got, fftjs.magnitude_spectrum_js_plain(x, size)), size
+
+
+@pytest.mark.cuda
 def test_exact_engine_on_the_card_equals_gold_units(card):
     """encode_pcm(engine="exact") on the card: golden.aea, the fixture's
     classes and biases, byte for byte; 3-frame chunks equal one chunk; K5
@@ -308,6 +358,8 @@ def test_exact_engine_on_the_card_equals_gold_units(card):
         lambda: fftjs_kernels.mdct_js(torch.zeros(4, 64, dtype=torch.float64), 64),
         lambda: fftjs_kernels.magnitude_spectrum_js(torch.zeros(4, 64), 64),
         lambda: fftjs_kernels.magnitude_spectrum_js(torch.zeros(128, 4).T, 128),
+        lambda: fftjs_kernels.mdct_js_masked(torch.zeros(4, 64), torch.ones(4, dtype=torch.int32)),
+        lambda: fftjs_kernels.mdct_js_masked(torch.zeros(4, 64), torch.ones(3, dtype=torch.bool)),
         lambda: bitpack_kernels.read_fields(
             torch.zeros(2, 128, dtype=torch.int32), torch.zeros(3, 5, dtype=torch.int32),
             torch.zeros(3, 5, dtype=torch.int32), 13, 107,
