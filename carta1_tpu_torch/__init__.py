@@ -15,6 +15,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from carta1_tpu_torch.constants import CODEC_DELAY, SAMPLE_RATE, SAMPLES_PER_FRAME, SOUND_UNIT_SIZE  # noqa: E402
 from carta1_tpu_torch.framedata import FrameData  # noqa: E402
 from carta1_tpu_torch.options import EncoderOptions  # noqa: E402
 from carta1_tpu_torch.pipeline.decoder import decode_frames, decode_step, decoder_init_state  # noqa: E402
@@ -25,7 +26,10 @@ from carta1_tpu_torch.gold import gold_decode_frames, gold_encode_frames  # noqa
 from carta1_tpu_torch.parallel import decode_frames_sharded, encode_frames_sharded, make_mesh  # noqa: E402
 from carta1_tpu_torch.parallel.corpus import transcode_corpus  # noqa: E402
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "CODEC_DELAY", "SAMPLE_RATE", "SAMPLES_PER_FRAME", "SOUND_UNIT_SIZE", "__version__",
     "EncoderOptions", "FrameData",
     "decode_file", "decode_frames", "decode_step", "decoder_init_state", "decode_units",
     "encode_clips", "encode_file", "encode_frames", "encode_step", "encoder_init_state", "encode_pcm",

@@ -1,9 +1,10 @@
 """ATRAC1 format constants and tables of the codec (encode and decode).
 
-An independent copy of what the port needs of `carta1_tpu/constants.py`: the
+An independent copy of every constant of `carta1_tpu/constants.py`: the
 port imports nothing of the JAX package (importing any of its modules
 loads JAX), so every table is rebuilt here by the same code, in float64
-as the reference computes it.
+as the reference computes it (tests/test_torch_gold_surface.py holds
+each to the JAX package's, word for word).
 
 Parity notes (reference: aynik/carta1):
   * frame geometry / AEA layout  -> codec/core/constants.js:6-22
@@ -49,6 +50,9 @@ SPECS_PER_BFU = np.array(
     dtype=np.int32,
 )
 
+BFU_AMOUNTS_COUNT = 8
+BFU_AMOUNTS = np.array([20, 28, 32, 36, 40, 44, 48, 52], dtype=np.int32)
+# bfu index ranges per band: band0 = [0,20), band1 = [20,36), band2 = [36,52)
 BFU_BAND_BOUNDARIES = np.array([20, 36, 52], dtype=np.int32)
 
 BFU_START_LONG = np.array(
@@ -69,16 +73,23 @@ BFU_START_SHORT = np.array(
 
 BFU_BAND = np.searchsorted(BFU_BAND_BOUNDARIES, np.arange(NUM_BFUS), side="right").astype(np.int32)
 BAND_OFFSETS = np.array([0, 128, 256, 512], dtype=np.int32)
+BAND_SIZES = np.array([128, 128, 256], dtype=np.int32)
 
 # ---------------------------------------------------------------------------
 # Transforms, overlap and delays
 # ---------------------------------------------------------------------------
+MDCT_SIZE_SHORT = 64
+MDCT_SIZE_MID = 256
+MDCT_SIZE_LONG = 512
+
 # 32-point half-sine used for every overlap window (constants.js:60-66)
 WINDOW_SHORT = np.sin((np.arange(32, dtype=np.float64) + 0.5) * np.pi / 64.0)
 
 MDCT_BAND_SIZES = (128, 128, 256)          # band samples per frame
 MDCT_WINDOW_START = (48, 48, 112)          # overlap placement inside the MDCT input
 MDCT_TRANSFORM_SIZES = (256, 256, 512)     # long-block MDCT input length per band
+MDCT_SHORT_BLOCK_SIZE = 32
+MDCT_OVERLAP_SIZE = 32
 MDCT_TAIL_WINDOW_SIZE = 16
 MDCT_NUM_SHORT_BLOCKS = (4, 4, 8)
 
@@ -95,11 +106,12 @@ _QMF_PROTO = np.array(
      -0.043596379, -0.099384367, 0.13207909, 0.46424159],
     dtype=np.float32,
 )
+QMF_COEFFS = _QMF_PROTO
 
 # symmetric 48-tap window, stored f32 like the reference (constants.js:83-90)
 QMF_WINDOW = np.zeros(QMF_TAPS, dtype=np.float32)
-QMF_WINDOW[:24] = _QMF_PROTO * np.float32(2.0)
-QMF_WINDOW[24:] = (_QMF_PROTO * np.float32(2.0))[::-1]
+QMF_WINDOW[:24] = QMF_COEFFS * np.float32(2.0)
+QMF_WINDOW[24:] = (QMF_COEFFS * np.float32(2.0))[::-1]
 
 QMF_EVEN = QMF_WINDOW[0::2].copy()   # [24]
 QMF_ODD = QMF_WINDOW[1::2].copy()    # [24]
@@ -114,12 +126,18 @@ QMF_KERNEL_LOW = QMF_WINDOW[47 - _t].astype(np.float32)            # [48]
 QMF_KERNEL_HIGH = (QMF_KERNEL_LOW * np.where(_t % 2 == 1, 1.0, -1.0)).astype(np.float32)
 
 # transient detection FFT sizes per band (constants.js:110-113)
-TRANSIENT_FFT_SIZES = (128, 128, 256)
+FFT_SIZE_LOW = 128
+FFT_SIZE_MID = 128
+FFT_SIZE_HIGH = 256
+TRANSIENT_FFT_SIZES = (FFT_SIZE_LOW, FFT_SIZE_MID, FFT_SIZE_HIGH)
 
 # ---------------------------------------------------------------------------
 # Serialization, quantization and PCM
 # ---------------------------------------------------------------------------
 FRAME_HEADER_BITS = 16
+FRAME_WORD_LENGTH_BITS = 4
+FRAME_SCALE_FACTOR_BITS = 6
+QUANTIZATION_SIGN_BIT_SHIFT = 1
 WORD_LENGTH_BITS = np.array(
     [0, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16], dtype=np.int32
 )
@@ -133,6 +151,8 @@ INV_POWER_OF_TWO = np.power(2.0, -np.arange(int(WORD_LENGTH_BITS[15]) + 1, dtype
 
 CODEC_DELAY = 266  # total algorithmic latency in samples (tests/decoder.test.js:22)
 
+WAV_HEADER_SIZE = 44
+WAV_DATA_OFFSET = 36
 WAV_BITS_PER_SAMPLE = 16
 WAV_BYTES_PER_SAMPLE = 2
 WAV_PCM_MAX_POSITIVE = 0x7FFF

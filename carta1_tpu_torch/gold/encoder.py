@@ -30,11 +30,11 @@ import torch
 
 from carta1_tpu_torch import constants as C
 from carta1_tpu_torch.framedata import FrameData
-from carta1_tpu_torch.gold.coding import allocate_bits, find_scale_factors, quantize_js
+from carta1_tpu_torch.gold.coding import allocate_bits_sf, quantize_js
 from carta1_tpu_torch.gold.fftjs import magnitude_spectrum_js
 from carta1_tpu_torch.gold.transforms import mdct, mdct_masked, qmf_analysis_stream
 from carta1_tpu_torch.gold.transient import transient_score
-from carta1_tpu_torch.ops.coding import group_bfus
+from carta1_tpu_torch.ops.coding import find_scale_factors, group_bfus
 from carta1_tpu_torch.ops.common import shift_frames
 from carta1_tpu_torch.ops.qmf import delay_stream
 from carta1_tpu_torch.options import EncoderOptions
@@ -142,7 +142,7 @@ def exact_encode_step(pcm: torch.Tensor, state: dict, options: EncoderOptions,
     """Exact batched encode of f32 [..., F, 512] (F > 0) -> (FrameData, state).
     `plain=True` runs K5's and K6's plain versions on any device."""
     bfu, sf, modes, _, new_state = exact_analysis(pcm, state, options, plain)
-    wl = allocate_bits(sf, options.allocation_bias, plain)
+    wl = allocate_bits_sf(sf, options.allocation_bias, plain)
     lead = sf.shape[:-1]
     fd = FrameData(
         n_bfu=torch.full(lead, C.NUM_BFUS, dtype=torch.int32, device=pcm.device),

@@ -114,9 +114,13 @@ def wav_header(channels: int, num_samples: int, sample_rate: int = SAMPLE_RATE) 
     )
 
 
-def write_wav(path: str, pcm_i16: np.ndarray, sample_rate: int = SAMPLE_RATE) -> None:
-    """pcm_i16: int16 [channels, num_samples] (or [num_samples]) -> WAV file."""
-    pcm = np.atleast_2d(np.asarray(pcm_i16))
+def write_wav(path: str, pcm: np.ndarray, sample_rate: int = SAMPLE_RATE) -> None:
+    """pcm: int16 [channels, num_samples] (or [num_samples]) -> WAV file.
+
+    The JAX package's `write_wav` takes f32 and converts it; here the
+    samples are int16 already (the decoder converts on the card, or
+    `float_to_int16` on the host), and anything else raises."""
+    pcm = np.atleast_2d(np.asarray(pcm))
     if pcm.dtype != np.int16:
         raise TypeError(f"write_wav takes int16 samples, got {pcm.dtype}")
     channels, n = pcm.shape

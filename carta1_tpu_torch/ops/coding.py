@@ -70,6 +70,11 @@ def expand_band_to_bfu(per_band: torch.Tensor) -> torch.Tensor:
     return per_band[..., _encode_tables(per_band.device)["bfu_band"]]
 
 
+def expand_band_to_coeff(per_band: torch.Tensor) -> torch.Tensor:
+    """[..., 3] band values -> [..., 512] per-position values."""
+    return per_band[..., _index_tables(per_band.device)[1]]
+
+
 def group_bfus(coeffs: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
     """[..., 512] spectra -> [..., 52, 20] BFU slots (zero padding).
 

@@ -81,9 +81,11 @@ def _full_from_mid(size: int, device: torch.device) -> tuple[torch.Tensor, torch
     return torch.from_numpy(idx).to(device), torch.from_numpy(neg).to(device)
 
 
-def imdct_exact(x: torch.Tensor, size: int, mid: bool = False, plain: bool = False) -> torch.Tensor:
+def imdct_exact(x: torch.Tensor, size: int, mid: bool = False, plain: bool = False,
+                scale: float | None = None) -> torch.Tensor:
     """[..., size/2] f32 spectra -> [..., size] f32, bit-identical to
-    gold.transforms.imdct (mdct.js:139-211 with the reference scales).
+    gold.transforms.imdct (mdct.js:139-211 with the reference scales), or
+    to gold.transforms.imdct_js at another `scale`.
 
     `mid=True` returns only the middle half [size/4, 3size/4), the only
     region the decoder's overlap assembly reads; the kernel computes just
@@ -91,7 +93,7 @@ def imdct_exact(x: torch.Tensor, size: int, mid: bool = False, plain: bool = Fal
     half = size >> 1
     lead = x.shape[:-1]
     core = imdct_mid_plain if plain else imdct_mid
-    out = core(x.reshape(-1, half).contiguous(), size)
+    out = core(x.reshape(-1, half).contiguous(), size, scale)
     if not mid:
         idx, neg = _full_from_mid(size, x.device)
         g = out[:, idx]
@@ -103,12 +105,13 @@ def imdct_exact(x: torch.Tensor, size: int, mid: bool = False, plain: bool = Fal
 # Overlap-add (mdct.js:230-245, gold/transforms.py overlap_add_js)
 # ---------------------------------------------------------------------------
 def overlap_add_exact(prev: torch.Tensor, curr: torch.Tensor) -> torch.Tensor:
-    """[..., 16] x2 -> [..., 32], bit-identical to gold overlap_add_js."""
-    t = C.MDCT_TAIL_WINDOW_SIZE
+    """[..., t] x2 -> [..., 2t], bit-identical to gold overlap_add_js; the
+    codec's t is 16 (t <= 16)."""
+    t = prev.shape[-1]
     w = _f64("WINDOW_SHORT", prev.device)
-    w1, w2 = w[:t], w[t:].flip(0)            # w1[i] = w[i], w2[i] = w[31-i]
+    w1, w2 = w[:t], w[t:2 * t].flip(0)       # w1[i] = w[i], w2[i] = w[2t-1-i]
     p = prev.double()
-    c = curr.flip(-1).double()               # c[i] = curr[15-i]
+    c = curr.flip(-1).double()               # c[i] = curr[t-1-i]
     lo = (p * w2 - c * w1).float()
     hi = (p * w1 + c * w2).float()
     return torch.cat([lo, hi.flip(-1)], dim=-1)

@@ -47,11 +47,12 @@ def _kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def _host_tables(kind: str, size: int):
-    """(sincos, tw_re, tw_im) f64 in host memory; sincos is empty for the spectrum.
-    Cached: the arrays outlive the calls that read them."""
+def _host_tables(kind: str, size: int, scale: float | None = None):
+    """(sincos, tw_re, tw_im) f64 in host memory; sincos is empty for the
+    spectrum, and the MDCT's is at `scale` (by default the reference
+    encoder's).  Cached: the arrays outlive the calls that read them."""
     if kind == "mdct":
-        sincos, _, tw_re, tw_im = mdct_tables(size)
+        sincos, _, tw_re, tw_im = mdct_tables(size, scale)
     else:
         _, tw_re, tw_im = fft_tables(size)
         sincos = tw_re[:0]
@@ -59,18 +60,19 @@ def _host_tables(kind: str, size: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _tables(kind: str, size: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _tables(kind: str, size: int, scale: float | None, device: torch.device) -> tuple[torch.Tensor, ...]:
     """The same tables on `device`."""
-    return tuple(torch.from_numpy(a.copy()).to(device) for a in _host_tables(kind, size))
+    return tuple(torch.from_numpy(a.copy()).to(device) for a in _host_tables(kind, size, scale))
 
 
-def _launch(x: torch.Tensor, out: torch.Tensor, kind: str, size: int, active: torch.Tensor | None = None):
+def _launch(x: torch.Tensor, out: torch.Tensor, kind: str, size: int, active: torch.Tensor | None = None,
+            scale: float | None = None):
     if x.shape[0] == 0:
         return out
     if x.data_ptr() % 16:                                  # rows are copied in 16-byte pieces
         x = x.clone()
-    host = _host_tables(kind, size)
-    sincos, tw_re, tw_im = _tables(kind, size, x.device)
+    host = _host_tables(kind, size, scale)
+    sincos, tw_re, tw_im = _tables(kind, size, scale, x.device)
     lib, fn = _kernel()
     mode, n = (0, size >> 2) if kind == "mdct" else (1, size)
     mask = kernels.ptr(active) if active is not None else None
@@ -90,12 +92,14 @@ def _check_mdct(x: torch.Tensor, size: int) -> None:
         raise ValueError(f"fft_js_mdct: need [B, {size}] samples, got {tuple(x.shape)}")
 
 
-def mdct_js(x: torch.Tensor, size: int) -> torch.Tensor:
-    """Forward MDCT with the reference's scale: f32 [B, size] -> f32 [B, size/2]."""
+def mdct_js(x: torch.Tensor, size: int, scale: float | None = None) -> torch.Tensor:
+    """Forward MDCT: f32 [B, size] -> f32 [B, size/2], at the reference
+    encoder's scale or at `scale` (a sincos table, the same kernel)."""
     _check_mdct(x, size)
     if x.device.type == "cpu":
-        return mdct_js_plain(x, size)
-    return _launch(x, torch.empty((x.shape[0], size >> 1), dtype=torch.float32, device=x.device), "mdct", size)
+        return mdct_js_plain(x, size, scale)
+    out = torch.empty((x.shape[0], size >> 1), dtype=torch.float32, device=x.device)
+    return _launch(x, out, "mdct", size, scale=scale)
 
 
 def mdct_js_masked(x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:

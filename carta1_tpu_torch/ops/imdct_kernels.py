@@ -18,7 +18,10 @@ Only the middle half of the output is computed, the only part the decoder
 reads.  `TILE` is the rows one block takes, per size.
 
 Both versions take f32 [B, size/2] spectra and return f32 [B, size/2]: the
-middle half [size/4, 3size/4) of the size-sample inverse transform.
+middle half [size/4, 3size/4) of the size-sample inverse transform.  The
+transform's scale (mdct.js:20-38) is its sincos table: by default the
+reference decoder's (`tables.IMDCT_SCALES`), any other through `scale`,
+with the same kernel.
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ TILE = {64: 32, 256: 32, 512: 16}   # rows per block in csrc/imdct_exact.cu
 
 
 @functools.lru_cache(maxsize=None)
-def _tables(size: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    sincos, perm, tw_re, tw_im = imdct_tables(size)
+def _tables(size: int, scale: float | None, device: torch.device) -> tuple[torch.Tensor, ...]:
+    sincos, perm, tw_re, tw_im = imdct_tables(size, scale)
     return tuple(
         torch.from_numpy(a.copy()).to(device)
         for a in (sincos, perm, tw_re, tw_im)
@@ -61,11 +64,11 @@ def _check(x: torch.Tensor, size: int) -> None:
         raise ValueError(f"imdct_mid: need [B, {size >> 1}] spectra, got {tuple(x.shape)}")
 
 
-def imdct_mid_plain(x: torch.Tensor, size: int) -> torch.Tensor:
+def imdct_mid_plain(x: torch.Tensor, size: int, scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch version: the gold f64 arithmetic as separate
     elementwise ops on any device (each op is one rounding, as in gold)."""
     _check(x, size)
-    sincos, perm, tw_re, tw_im = _tables(size, x.device)
+    sincos, perm, tw_re, tw_im = _tables(size, scale, x.device)
     perm = perm.long()
     half, n = size >> 1, size >> 2
     b = x.shape[0]
@@ -105,17 +108,17 @@ def imdct_mid_plain(x: torch.Tensor, size: int) -> torch.Tensor:
     return out
 
 
-def imdct_mid(x: torch.Tensor, size: int) -> torch.Tensor:
+def imdct_mid(x: torch.Tensor, size: int, scale: float | None = None) -> torch.Tensor:
     """Kernel wrapper: the plain version for a CPU tensor, the CUDA kernel
     for a CUDA tensor (launched on the current stream, raising on error)."""
     _check(x, size)
     if x.device.type == "cpu":
-        return imdct_mid_plain(x, size)
+        return imdct_mid_plain(x, size, scale)
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
-    sincos, _, tw_re, tw_im = _tables(size, x.device)
-    host = imdct_tables(size)           # cached: the arrays outlive the call that reads them
+    sincos, _, tw_re, tw_im = _tables(size, scale, x.device)
+    host = imdct_tables(size, scale)    # cached: the arrays outlive the call that reads them
     lib, fn = _kernel()
     err = kernels.launch(
         fn, x.device,

@@ -103,6 +103,7 @@ def encode_pcm(
     chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     plain: bool = False,
     engine: str = "tpu",
+    on_progress: Callable[[int, int], None] | None = None,
 ) -> np.ndarray:
     """pcm: f32 (or raw int16) [channels, N] -> interleaved sound units uint8 [F*C, 212].
 
@@ -111,7 +112,10 @@ def encode_pcm(
     chunk stay on the device until the end.  `engine` is "tpu" (the
     batched encoder) or "exact" (units byte-equal to the reference's; the
     module docstring).  `plain=True` runs the kernels' plain PyTorch
-    versions (the kernels' yardstick)."""
+    versions (the kernels' yardstick).  `on_progress(done, total)` is
+    called once per chunk, after the chunk is queued, with the frames
+    queued so far and the frames in all, as the JAX package calls it; it
+    waits for nothing on the card."""
     _check_engine(engine)
     dev = resolve_device(device)
     options = options or EncoderOptions()
@@ -119,12 +123,15 @@ def encode_pcm(
     if pcm.ndim != 2 or pcm.shape[0] not in (1, 2):
         raise ValueError(f"encode_pcm: need PCM [channels, N] with 1 or 2 channels, got {pcm.shape}")
     frames = np.stack([pcm_to_frames(ch) for ch in pcm])              # [C, F, 512]
+    nframes = frames.shape[1]
     state = None
     chunks = []
-    for start in range(0, frames.shape[1], chunk_frames):
+    for start in range(0, nframes, chunk_frames):
         chunk = torch.from_numpy(np.ascontiguousarray(frames[:, start:start + chunk_frames])).to(dev)
         units, state = _encode_batch_dev(chunk, options, state, plain=plain, engine=engine)
         chunks.append(units)
+        if on_progress:
+            on_progress(min(start + chunk_frames, nframes), nframes)
     units = torch.cat(chunks, dim=1).cpu().numpy()                    # [C, F, 212]
     if units.shape[0] == 1:
         return units[0]
@@ -153,6 +160,7 @@ def decode_units(
     to_i16: bool = False,
     plain: bool = False,
     engine: str = "tpu",
+    on_progress: Callable[[int, int], None] | None = None,
 ) -> torch.Tensor:
     """Interleaved sound units uint8 [N, 212] -> PCM [channels, F*512] on `device`.
 
@@ -160,7 +168,10 @@ def decode_units(
     with a silent unit (processor.js:201-211).  The result is f32, or int16
     with the reference's WAV conversion when `to_i16` is set.  Both engines
     decode bit-exactly, with the same decoder.  `plain=True` runs the
-    kernels' plain PyTorch versions (the kernels' yardstick)."""
+    kernels' plain PyTorch versions (the kernels' yardstick).
+    `on_progress(done, total)` is called once per chunk, after it is
+    queued, with the frames per channel queued so far and in all (a
+    stereo stream's padding unit counted), as the JAX package calls it."""
     _check_engine(engine)
     dev = resolve_device(device)
     units = np.ascontiguousarray(units, dtype=np.uint8)
@@ -177,6 +188,8 @@ def decode_units(
         chunk = torch.from_numpy(np.ascontiguousarray(stacked[:, start:start + chunk_frames])).to(dev)
         pcm, state = _decode_batch_dev(chunk, state, to_i16=to_i16, plain=plain)
         outs.append(pcm)
+        if on_progress:
+            on_progress(min(start + chunk_frames, nframes), nframes)
     if not outs:
         dtype = torch.int16 if to_i16 else torch.float32
         return torch.zeros((len(channels), 0), dtype=dtype, device=dev)

@@ -88,17 +88,23 @@ def fft_tables(n: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def imdct_tables(size: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+def _transform_tables(size: int, scale: float) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    return (_sincos_table(size, scale), *fft_tables(size >> 2))
+
+
+def imdct_tables(size: int, scale: float | None = None) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Everything one IMDCT size needs, flat, for the kernel and its plain twin:
-    (sincos f64 [size/2], perm int32 [size/4], tw_re, tw_im f64 [size/4 - 1])."""
-    return (_sincos_table(size, IMDCT_SCALES[size]), *fft_tables(size >> 2))
+    (sincos f64 [size/2], perm int32 [size/4], tw_re, tw_im f64 [size/4 - 1]).
+    `scale` is the transform's (mdct.js:20-38), by default the reference
+    decoder's instance (`IMDCT_SCALES`); the tables are cached by (size, scale)."""
+    return _transform_tables(size, float(IMDCT_SCALES[size] if scale is None else scale))
 
 
-@functools.lru_cache(maxsize=None)
-def mdct_tables(size: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """The same for the forward MDCT (mdct.js:54-122) with the reference's
-    scale: (sincos f64 [size/2], perm, tw_re, tw_im)."""
-    return (_sincos_table(size, MDCT_SCALES[size]), *fft_tables(size >> 2))
+def mdct_tables(size: int, scale: float | None = None) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The same for the forward MDCT (mdct.js:54-122), by default at the
+    reference encoder's scale (`MDCT_SCALES`): (sincos f64 [size/2], perm,
+    tw_re, tw_im)."""
+    return _transform_tables(size, float(MDCT_SCALES[size] if scale is None else scale))
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +282,24 @@ def decoder_imdct_tables() -> dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 _bits = C.WORD_LENGTH_BITS.astype(np.int64)
 QUANT_RANGES = np.where(_bits > 0, (1 << np.maximum(_bits - 1, 0)) - 1, 0)   # [16] int
+
+# the JAX package's quantizer tables (`carta1_tpu/ops/tables.py`), f32 [64, 16]
+# by (scale factor index, word length), built by the same code: the
+# dequantizer's step scale_factor / range and the quantizer's norm
+# range / scale_factor, 0 where the word length or the index is 0
+# (quantization.js:37,66).  The port's quantizers compute these inline.
+DEQUANT_STEP = np.zeros((64, 16), np.float64)
+for _w in range(16):
+    if QUANT_RANGES[_w] > 0:
+        DEQUANT_STEP[:, _w] = C.SCALE_FACTORS / QUANT_RANGES[_w]
+DEQUANT_STEP[0, :] = 0.0
+DEQUANT_STEP = DEQUANT_STEP.astype(np.float32)
+
+QUANT_NORM = np.zeros((64, 16), np.float64)
+for _w in range(16):
+    QUANT_NORM[:, _w] = QUANT_RANGES[_w] / C.SCALE_FACTORS
+QUANT_NORM[0, :] = 0.0
+QUANT_NORM = QUANT_NORM.astype(np.float32)
 
 # candidate steps wl -> wl + 1 for wl in 0..14 (bitallocation.js:91-105)
 _wl = np.arange(15)

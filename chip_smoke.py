@@ -85,7 +85,20 @@ Phases (each raises on failure; nothing is caught):
      chunk's modes, and under all-off, all-on, alternating and
      first-and-last masks; also every row transformed), with K5's serial
      chain per frame counted by its plain version: accepted steps, pops,
-     compared sift levels, and the mean over warps of a warp's longest.
+     compared sift levels, and the mean over warps of a warp's longest;
+ 12. the gold surface (gold/transforms.py, gold/coding.py with the JAX
+     package's signatures) on the card at the shapes of (c)'s first chunk:
+     mdct_js / mdct on K6 and imdct_js / imdct on K1 at the instance
+     scales and at gold's default scales, qmf_synthesis_stream on K2 over
+     the chunk's bands (and in three calls with the delay carried, equal to
+     one call), allocate_bits / allocate_bits_frame on K5 and
+     allocate_bits_sweep on K4's alloc_reference, each against its plain
+     route with 0 differing words, launch counters reset just before and
+     read just after (K1, K2, K4's alloc_reference, K5 and K6 must have
+     launched); overlap_add_js, find_scale_factors and dequantize_js on the
+     card against the CPU; K1 and K6 timed at a non-instance scale; then
+     encode_pcm / decode_units with on_progress on phase 6's prefix (the
+     calls listed, units and int16 equal to phase 6's); the phase's walls.
 
 The last lines are a JSON `kernels` line, the card's name and power limit,
 and the result line.  The full record (every timing, the profile) goes to
@@ -923,6 +936,160 @@ def exact_phase(pcm16: np.ndarray, units: torch.Tensor, options, fixtures: str, 
     return rec
 
 
+def gold_surface_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, options, dev: torch.device,
+                       smi: str) -> dict:
+    """Phase 12: the gold surface (`gold/transforms.py`, `gold/coding.py`)
+    on the card, at the shapes the first chunk of phase 6's stream gives
+    the exact engine (phase 11(c)): each function's kernel route against
+    its plain route, then `on_progress` on encode_pcm / decode_units.
+    pcm16 is phase 6's stream ([C, F, 512] int16), `units` and `pcm` its
+    units and int16 on the card."""
+    from carta1_tpu_torch import decode_units, encode_pcm, kernels
+    from carta1_tpu_torch import constants as C
+    from carta1_tpu_torch.gold import coding, transforms
+    from carta1_tpu_torch.gold.encoder import (analysis_bands, encoder_init_state, exact_analysis, mdct_inputs,
+                                               short_block_mask)
+    from carta1_tpu_torch.ops import fftjs_kernels, imdct_kernels
+    from carta1_tpu_torch.ops.pcm import int16_to_float
+
+    t_phase = time.perf_counter()
+    nch, nframes = pcm16.shape[:2]
+    chunk = min(CHUNK, nframes)
+    pcm0 = int16_to_float(torch.from_numpy(np.ascontiguousarray(pcm16[:, :chunk])).to(dev))
+    st0 = encoder_init_state(dev, nch)
+    bfu, sf, modes, _, _ = exact_analysis(pcm0, st0, options)
+    bfu, sf = bfu.reshape(-1, C.NUM_BFUS, C.MAX_BFU_SIZE).contiguous(), sf.reshape(-1, C.NUM_BFUS).contiguous()
+    bands, _ = analysis_bands(pcm0, st0)
+    long_in, short_in, _ = mdct_inputs(bands, st0)
+    x = {64: short_in.reshape(-1, 64).contiguous(), 256: torch.stack(long_in[:2]).reshape(-1, 256).contiguous(),
+         512: long_in[2].reshape(-1, 512).contiguous()}
+    spec = {size: transforms.mdct(v, size) for size, v in x.items()}
+    spec[64] = spec[64][short_block_mask(modes).reshape(-1)].contiguous()      # the short blocks the encoder keeps
+    low, mid, high = (b.reshape(nch, -1).contiguous() for b in bands)
+    zero = torch.zeros(nch, C.QMF_DELAY, device=dev)
+    wl = coding.allocate_bits_sf(sf, options.allocation_bias)
+    quant = coding.quantize_js(bfu, sf, wl)
+    bias = options.allocation_bias
+    sizes = C.SPECS_PER_BFU
+
+    # (name, call); each call takes plain and returns a tensor or a tuple of them
+    cases = []
+    for size in (64, 256, 512):
+        for scale in (transforms.MDCT_SCALES[size], float(size)):
+            cases.append((f"mdct_js({size}, {scale})", lambda p, s=size, c=scale: transforms.mdct_js(x[s], s, c, p)))
+        for scale in (transforms.IMDCT_SCALES[size], None):
+            cases.append((f"imdct_js({size}, {scale})",
+                          lambda p, s=size, c=scale: transforms.imdct_js(spec[s], s, c, p)))
+        cases.append((f"mdct({size})", lambda p, s=size: transforms.mdct(x[s], s, p)))
+        cases.append((f"imdct({size})", lambda p, s=size: transforms.imdct(spec[s], s, p)))
+
+    def synthesis(p):
+        lows, d1 = transforms.qmf_synthesis_stream(low, mid, zero, p)
+        return (lows, d1, *transforms.qmf_synthesis_stream(lows, high, zero, p))
+
+    cases += [
+        ("qmf_synthesis_stream", synthesis),
+        ("allocate_bits", lambda p: coding.allocate_bits(bfu, sizes, bias, p)),
+        ("allocate_bits_frame", lambda p: coding.allocate_bits_frame(bfu[1], sizes, bias, p)),
+        ("allocate_bits_sweep", lambda p: coding.allocate_bits_sweep(sf, sizes, bias, p)),
+        ("allocate_bits_sweep(2.0)", lambda p: coding.allocate_bits_sweep(sf, sizes, 2.0, p)),
+    ]
+    for _, call in cases:                                            # warm the tables
+        call(False)
+    _sync(dev)
+    kernels.reset_launches()
+    walls, got = {}, {}
+    for name, call in cases:
+        walls[name], got[name] = _timed(lambda: call(False), dev)
+    launches = dict(kernels.LAUNCHES)
+    path = ("imdct_exact_64", "imdct_exact_256", "imdct_exact_512", "qmf_taps", "alloc_reference", "alloc_heap",
+            "fft_js_mdct_64", "fft_js_mdct_256", "fft_js_mdct_512")
+    missing = [k for k in path if launches[k] == 0]
+    if dev.type == "cuda" and missing:
+        raise AssertionError(f"gold surface: launched no {missing}: {launches}")
+    differ = {}
+    for name, call in cases:
+        want = call(True)
+        pairs = zip(got[name], want) if isinstance(want, tuple) else [(got[name], want)]
+        differ[name] = sum(_mismatch(a, b)[0] for a, b in pairs)
+    # no kernel: the same PyTorch ops on the card and on the CPU
+    cpu = torch.device("cpu")
+    prev, curr = spec[256][:, :16].contiguous(), spec[256][:, 16:32].contiguous()
+    plain_pairs = {
+        "overlap_add_js": (transforms.overlap_add_js(prev, curr),
+                           transforms.overlap_add_js(prev.to(cpu), curr.to(cpu))),
+        "find_scale_factors": (coding.find_scale_factors(bfu, C.BFU_SLOT_MASK),
+                               coding.find_scale_factors(bfu.to(cpu), C.BFU_SLOT_MASK)),
+        "dequantize_js": (coding.dequantize_js(quant, sf, wl),
+                          coding.dequantize_js(quant.to(cpu), sf.to(cpu), wl.to(cpu))),
+    }
+    for name, (a, b) in plain_pairs.items():
+        differ[name] = _mismatch(a.cpu(), b)[0]
+    if not torch.equal(plain_pairs["find_scale_factors"][0], sf):
+        raise AssertionError("gold surface: find_scale_factors differs from the exact encoder's scale factors")
+    if any(differ.values()):
+        raise AssertionError(f"gold surface: words differ from the plain route: {differ}")
+    out = got["qmf_synthesis_stream"][2]
+    if out.shape != (nch, chunk * 512) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"gold surface: QMF synthesis gave {tuple(out.shape)} or values that are not finite")
+    # the stream in three calls, the delay carried, equals one call
+    lows = got["qmf_synthesis_stream"][0]
+    cut = [0, 1001, high.shape[1] // 2 + 3, high.shape[1]]
+    parts, d = [], zero
+    for a, b in zip(cut, cut[1:]):
+        o, d = transforms.qmf_synthesis_stream(lows[:, a:b], high[:, a:b], d)
+        parts.append(o)
+    chained = _mismatch(torch.cat(parts, dim=-1), out)[0] + _mismatch(d, got["qmf_synthesis_stream"][3])[0]
+    if chained:
+        raise AssertionError(f"gold surface: the QMF synthesis in three calls differs from one call in {chained} words")
+
+    # K1 and K6 at a scale other than the instance's: the same kernel, another table
+    scale_ms = {}
+    if dev.type == "cuda":
+        for size in (256, 512):
+            v, sp = x[size], spec[size]
+            scale_ms[f"imdct_exact_{size}"] = [kernels.time_ms(lambda c=c: imdct_kernels.imdct_mid(sp, size, c), 20)[0]
+                                               for c in (None, float(size))]
+            scale_ms[f"fft_js_mdct_{size}"] = [kernels.time_ms(lambda c=c: fftjs_kernels.mdct_js(v, size, c), 20)[0]
+                                               for c in (None, float(size))]
+
+    # on_progress: the chunk calls of encode_pcm / decode_units on phase 6's prefix
+    flat16 = pcm16.reshape(nch, -1)
+    pre = min(2 * CHUNK, nframes)
+    enc_calls, dec_calls, ragged_calls = [], [], []
+    step = CHUNK * 5 // 8                                            # chunks that end off phase 6's
+    pub_units = encode_pcm(flat16[:, :pre * 512], device=dev, chunk_frames=CHUNK,
+                           on_progress=lambda d_, n: enc_calls.append((d_, n)))
+    pub_pcm = decode_units(pub_units, nch, device=dev, chunk_frames=CHUNK, to_i16=True,
+                           on_progress=lambda d_, n: dec_calls.append((d_, n)))
+    ragged = decode_units(pub_units, nch, device=dev, to_i16=True, chunk_frames=step,
+                          on_progress=lambda d_, n: ragged_calls.append((d_, n)))
+    want_calls = [(min(k + CHUNK, pre), pre) for k in range(0, pre, CHUNK)]
+    want_ragged = [(min(k + step, pre), pre) for k in range(0, pre, step)]
+    if enc_calls != want_calls or dec_calls != want_calls or ragged_calls != want_ragged:
+        raise AssertionError(f"on_progress: calls {enc_calls}, {dec_calls}, {ragged_calls}; want {want_calls}, "
+                             f"{want_ragged}")
+    want_units = units[:, :pre].cpu().numpy()
+    if not all(np.array_equal(pub_units[ch::nch], want_units[ch]) for ch in range(nch)):
+        raise AssertionError("on_progress: encode_pcm's units differ from phase 6's prefix")
+    if _mismatch(pub_pcm, pcm[:, :pre].reshape(nch, -1))[0] or _mismatch(ragged, pub_pcm)[0]:
+        raise AssertionError("on_progress: decode_units' int16 differs from phase 6's prefix")
+    wall = time.perf_counter() - t_phase
+    shapes = {s: [list(x[s].shape), list(spec[s].shape)] for s in x}
+    print(f"gold surface: {len(cases)} kernel routes and {len(plain_pairs)} plain functions, 0 words differ from the "
+          f"plain route (MDCT inputs and IMDCT spectra {shapes}, QMF streams {list(low.shape)} and "
+          f"{list(high.shape)}, BFU data {list(bfu.shape)}); K1 and K6 at the instance scales and at gold's default "
+          f"scales; the QMF stream in three calls equals one call; launches {launches}")
+    print(f"gold surface walls on {smi} (ms, host clock, synchronised): "
+          + "; ".join(f"{k} {v * 1e3:.4f}" for k, v in walls.items())
+          + (f"; K1 / K6 at the instance scale and at scale = size (device ms): {scale_ms}" if scale_ms else ""))
+    print(f"on_progress: encode_pcm {enc_calls}, decode_units {dec_calls} and at {step}-frame chunks {ragged_calls}; "
+          f"units and int16 equal to phase 6's prefix; phase 12 took {wall:.1f} s")
+    return {"launches": launches, "walls_s": walls, "differing_words": differ, "chained_differing_words": chained,
+            "scale_ms": scale_ms, "on_progress": {"encode": enc_calls, "decode": dec_calls, "ragged": ragged_calls},
+            "seconds": wall, "card": smi}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--record", default=os.path.join("build", "chip_smoke.json"),
@@ -1344,6 +1511,11 @@ def main() -> int:
     record["phase11"] = exact_phase(pcm16, units, options, fixtures, golden_units, golden, dev, check, rows,
                                      conv_rate)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
+    # 12. the gold surface on the card, and on_progress
+    record["phase12"] = gold_surface_phase(pcm16, units, pcm, options, dev, smi)
+    for row in rows:
+        row["launches_gold_surface"] = record["phase12"]["launches"][row["name"]]
 
     record["kernels"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

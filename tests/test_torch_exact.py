@@ -179,7 +179,7 @@ def test_heap_allocator_equals_gold(bias):
             continue
         want_wl, want_sf = jax_coding.allocate_bits(testing.heap_edge_peaks(sf), JAX_SPECS, bias)
         assert np.array_equal(want_sf, sf), name
-        got = coding.allocate_bits(_t(sf), bias).numpy()
+        got = coding.allocate_bits_sf(_t(sf), bias).numpy()
         assert np.array_equal(got, want_wl), name
         used = (JAX_WLB[got] * JAX_SPECS).sum(axis=1)
         spent_all += int((used == RDO_BUDGET).sum())

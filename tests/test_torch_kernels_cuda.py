@@ -340,6 +340,54 @@ def test_exact_engine_on_the_card_equals_gold_units(card):
     assert np.array_equal(encode_pcm(pcm, device=card, engine="exact", plain=True), want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", imdct_kernels.SIZES)
+def test_imdct_and_mdct_kernels_at_other_scales_match_plain(card, size):
+    """K1 and K6 at scales other than the reference's instances (a scale is
+    a sincos table): gold's default scale = size and two more, on the edge
+    inputs and a main-path-sized batch, each launch counted."""
+    for scale in (float(size), 3.0, 1e-3):
+        for batch, seed in testing.edge_cases(imdct_kernels.TILE[size]):
+            x = torch.from_numpy(testing.imdct_edge_spectra(size, batch, seed)).to(card)
+            got = imdct_kernels.imdct_mid(x, size, scale)
+            assert _same_bits(got, imdct_kernels.imdct_mid_plain(x, size, scale)), (scale, batch, seed)
+        for batch, seed in testing.edge_cases(fftjs_kernels.ROWS[("mdct", size)]):
+            x = torch.from_numpy(testing.edge_rows(batch, size, seed, 1e30)).to(card)
+            got = fftjs_kernels.mdct_js(x, size, scale)
+            assert _same_bits(got, transforms.mdct_js_plain(x, size, scale)), (scale, batch, seed)
+        x = _spectra(4096, size // 2, size).to(card)
+        before = kernels.LAUNCHES[f"imdct_exact_{size}"]
+        got = imdct_kernels.imdct_mid(x, size, scale)
+        assert kernels.LAUNCHES[f"imdct_exact_{size}"] == before + 1
+        assert _same_bits(got, imdct_kernels.imdct_mid_plain(x, size, scale))
+        x = _spectra(4096, size, size + 1).to(card)
+        assert _same_bits(fftjs_kernels.mdct_js(x, size, scale), transforms.mdct_js_plain(x, size, scale))
+
+
+@pytest.mark.cuda
+def test_gold_imdct_js_and_qmf_synthesis_stream_on_the_card(card):
+    """One round of the gold surface on the card: imdct_js at gold's default
+    scale and qmf_synthesis_stream over a ragged stream (and in three calls
+    with the delay carried), each equal to the plain route, K1 and K2
+    launched."""
+    kernels.reset_launches()
+    x = _spectra(2048, 256, 3).to(card)
+    got = transforms.imdct_js(x, 512)
+    assert _same_bits(got, transforms.imdct_js(x, 512, plain=True))
+    s = 3 * 256 + 77
+    low, high = _spectra(2, s, 4).to(card) * 1e-3, _spectra(2, s, 5).to(card) * 1e-3
+    delay = torch.zeros(2, 46, device=card)
+    out, new_delay = transforms.qmf_synthesis_stream(low, high, delay)
+    want, want_delay = transforms.qmf_synthesis_stream(low, high, delay, plain=True)
+    assert _same_bits(out, want) and _same_bits(new_delay, want_delay)
+    parts, d = [], delay
+    for a, b in ((0, 100), (100, 600), (600, s)):
+        o, d = transforms.qmf_synthesis_stream(low[:, a:b], high[:, a:b], d)
+        parts.append(o)
+    assert _same_bits(torch.cat(parts, dim=-1), out) and _same_bits(d, new_delay)
+    assert kernels.LAUNCHES["imdct_exact_512"] and kernels.LAUNCHES["qmf_taps"]
+
+
 @pytest.mark.parametrize(
     "call",
     [

@@ -1,0 +1,183 @@
+"""The port's public surface against the JAX package's, read with `ast`.
+
+For every module of `carta1_tpu/` (parsed, never imported: importing it
+loads JAX), each public function and class with its parameter names, and
+each upper-case constant, must have a counterpart in the module of
+`carta1_tpu_torch/` at the same relative path (or where `MOVED` says)
+that accepts every one of those parameter names, so that keyword callers
+work; or it is in `DELIBERATE`, with the reason it is left out.  The port
+may add parameters of its own (`device`, `plain`, `to_i16`).  No entry of
+`DELIBERATE` may have a counterpart, so the list cannot go stale.  One case
+per module of the JAX package; no JAX function is compiled.
+"""
+
+from __future__ import annotations
+
+import ast
+import importlib
+import inspect
+import pathlib
+import re
+
+import pytest
+
+JAX_ROOT = pathlib.Path(__file__).resolve().parent.parent / "carta1_tpu"
+_UPPER = re.compile(r"^[A-Z][A-Z0-9_]*$")
+
+# where the port put a name under another module or name: (JAX module, name) -> (port module, name)
+MOVED = {
+    ("ops.exact_fft_pallas", "imdct_exact_pallas"): ("ops.imdct_kernels", "imdct_mid"),
+    ("ops.exact_qmf_pallas", "qmf_taps_pallas"): ("ops.qmf_kernels", "qmf_taps"),
+    ("ops.bitpack_pallas", "window_reduce_pallas"): ("ops.bitpack_kernels", "read_fields"),
+}
+# JAX modules whose names live in another module of the port: a Pallas
+# kernel's module in its CUDA kernel's wrapper module
+MOVED_MODULES = {
+    "ops.tables": "tables",
+    "ops.exact_fft_pallas": "ops.imdct_kernels",
+    "ops.exact_qmf_pallas": "ops.qmf_kernels",
+    "ops.bitpack_pallas": "ops.bitpack_kernels",
+}
+
+# what the port leaves out on purpose: (JAX module, "*" for the whole module,
+# "name", or "name(param)") -> why
+DELIBERATE = {
+    ("jaxtools", "*"): "the JAX runtime's relay workarounds (hoisted jit, fetch spools); a GPU needs none",
+    ("jaxsetup", "*"): "JAX platform and compilation-cache setup",
+    ("ops.df", "*"): "f64 emulated by f32 error-free expansions; the H100 has IEEE f64",
+    ("native", "*"): "OpenMP host packers with a NumPy fallback; the port packs and unpacks on the card",
+    ("io.bitstream_np", "*"): "host bit packers; the port packs and unpacks on the card (ops/bitpack.py)",
+    ("pipeline.decoder", "decode_step(short_cap)"): "a static capacity of short frames for one XLA program",
+    ("pipeline.decoder", "decode_step(assume_fits)"): "skips the static-capacity overflow fallback",
+    ("pipeline.decoder", "auto_short_cap"): "picks the static short-frame capacity of an XLA program",
+    ("ops.exact_decode", "imdct_bands_exact(short_cap)"): "a static capacity of short frames for one XLA program",
+    ("ops.exact_decode", "imdct_bands_exact(assume_fits)"): "skips the static-capacity overflow fallback",
+    ("ops.exact_decode", "imdct_exact_xla"): "the XLA route of K1's core; the port has K1 and its plain version",
+    ("ops.exact_decode", "fft_exact"): "the XLA route's FFT in f32 expansions; K1 runs the FFT in f64",
+    ("ops.common", "fmatmul"): "a one-hot matmul standing in for a gather; the port indexes",
+    ("ops.common", "FP"): "the matmul precision of the one-hot contractions",
+    ("ops.coding", "table_lookup"): "a one-hot contraction standing in for a gather; the port indexes",
+    ("ops.tables", "bfu_permutation_matrices"): "one-hot matrices standing in for gathers; the port indexes",
+    ("parallel.sharding", "make_mesh(axis)"): "a JAX mesh axis name; a port mesh is a tuple of devices",
+    ("parallel.sharding", "AXIS"): "the JAX mesh axis name",
+    ("ops.exact_fft_pallas", "imdct_exact_pallas(interpret)"): "Pallas interpret mode; a CUDA kernel has "
+    "none, its plain version runs for a CPU tensor",
+    ("ops.exact_fft_pallas", "imdct_exact_pallas(mid)"): "K1 computes the middle half only; the full "
+    "output is ops.exact_decode.imdct_exact(mid=False)",
+    ("ops.exact_qmf_pallas", "qmf_taps_pallas(interpret)"): "Pallas interpret mode; a CUDA kernel has "
+    "none, its plain version runs for a CPU tensor",
+    ("ops.bitpack_pallas", "window_reduce_pallas(h)"): "K3 reads each field at its bit offset and width "
+    "(read_fields(win32, offsets, widths, ...)), not a window at an anchor index",
+    ("ops.bitpack_pallas", "window_reduce_pallas(block_frames)"): "the TPU grid's block; K3's is fixed",
+}
+
+
+def _params(fn: ast.FunctionDef) -> list[str]:
+    a = fn.args
+    return [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs]
+
+
+def jax_surface(path: pathlib.Path) -> dict[str, tuple[str, list[str]]]:
+    """name -> (kind, parameter names) of a module's public functions and
+    classes (a class's `__init__` parameters, or its annotated fields),
+    upper-case constants and `__all__` names."""
+    out: dict[str, tuple[str, list[str]]] = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and not node.name.startswith("_"):
+            out[node.name] = ("function", _params(node))
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            init = [n for n in node.body if isinstance(n, ast.FunctionDef) and n.name == "__init__"]
+            fields = [n.target.id for n in node.body if isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name)]
+            out[node.name] = ("class", _params(init[0])[1:] if init else fields)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            names = [n for t in targets for n in ([t] if isinstance(t, ast.Name) else getattr(t, "elts", []))]
+            for n in names:
+                if isinstance(n, ast.Name) and _UPPER.match(n.id):
+                    out[n.id] = ("constant", [])
+                elif isinstance(n, ast.Name) and n.id == "__all__":
+                    for e in node.value.elts:
+                        out.setdefault(e.value, ("export", []))
+    return out
+
+
+def _module_name(path: pathlib.Path) -> str:
+    parts = path.relative_to(JAX_ROOT).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+JAX_MODULES = sorted(_module_name(p) for p in JAX_ROOT.rglob("*.py"))
+
+
+def _jax_path(module: str) -> pathlib.Path:
+    base = JAX_ROOT.joinpath(*module.split(".")) if module else JAX_ROOT
+    return base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
+
+
+def _port_module(module: str):
+    name = MOVED_MODULES.get(module, module)
+    try:
+        return importlib.import_module("carta1_tpu_torch" + ("." + name if name else ""))
+    except ModuleNotFoundError:
+        return None
+
+
+def _accepts(obj, params: list[str]) -> list[str]:
+    """The names of `params` that a call of obj cannot take as keywords."""
+    sig = inspect.signature(obj)
+    if any(p.kind == p.VAR_KEYWORD for p in sig.parameters.values()):
+        return []
+    return [p for p in params
+            if p not in sig.parameters or sig.parameters[p].kind == inspect.Parameter.POSITIONAL_ONLY]
+
+
+def _counterpart(module: str, name: str):
+    port_mod, port_name = MOVED.get((module, name), (MOVED_MODULES.get(module, module), name))
+    try:
+        mod = importlib.import_module("carta1_tpu_torch" + ("." + port_mod if port_mod else ""))
+    except ModuleNotFoundError:
+        return None
+    return getattr(mod, port_name, None)
+
+
+@pytest.mark.parametrize("module", JAX_MODULES, ids=lambda m: m or "__init__")
+def test_port_has_every_public_name_of_the_jax_module(module):
+    if (module, "*") in DELIBERATE:
+        assert _port_module(module) is None, f"{module} is in DELIBERATE but the port has it"
+        return
+    assert _port_module(module) is not None, f"the port has no module for carta1_tpu.{module}"
+    faults = []
+    for name, (kind, params) in jax_surface(_jax_path(module)).items():
+        if (module, name) in DELIBERATE:
+            continue
+        obj = _counterpart(module, name)
+        if obj is None:
+            faults.append(f"{kind} {name}: no counterpart")
+            continue
+        if kind in ("function", "class"):
+            left = [p for p in _accepts(obj, params) if (module, f"{name}({p})") not in DELIBERATE]
+            if left:
+                faults.append(f"{kind} {name}: takes no keyword {left}")
+    assert not faults, f"carta1_tpu.{module}: " + "; ".join(faults)
+
+
+def test_deliberate_entries_have_no_counterpart():
+    """Each omission is still one: the module, the name or the keyword is
+    absent from the port, and every entry names something the JAX package
+    has."""
+    for (module, what), reason in DELIBERATE.items():
+        assert reason, (module, what)
+        assert module in JAX_MODULES, f"DELIBERATE names carta1_tpu.{module}, which does not exist"
+        if what == "*":
+            assert _port_module(module) is None, f"{module}: the port has it now"
+            continue
+        name, _, param = what.partition("(")
+        surface = jax_surface(_jax_path(module))
+        assert name in surface, f"DELIBERATE names {module}.{name}, which the JAX package does not have"
+        obj = _counterpart(module, name)
+        if param:
+            param = param.rstrip(")")
+            assert param in surface[name][1], f"{module}.{name} takes no {param} in the JAX package"
+            assert obj is not None and _accepts(obj, [param]), f"{module}.{name}: the port takes {param} now"
+        else:
+            assert obj is None, f"{module}.{name}: the port has it now"
