@@ -15,8 +15,13 @@ ops that each round once, or a hand kernel that repeats it:
     band's mode is short (K6, the short rows masked on the card), selected
     per frame, the f64 window products stored to f32, the mid and high
     bands' spectra reversed;
-  * BFU grouping and scale factors (`ops/coding`), the reference's heap
-    allocation (kernel K5) and gold's f64 quantizer.
+  * BFU grouping (`ops/coding`), gold's scale factors (`gold/coding`: 63
+    for a NaN peak, where the batched engine's `ops/coding` gives 0), the
+    reference's heap allocation (kernel K5) and gold's f64 quantizer.
+
+On non-finite input the units are specified only as far as the scale
+factors: gold's `quantize_js` casts a NaN to int64, which NumPy leaves
+undefined, so gold itself has no defined word past them.
 
 The stream state has gold's keys (those of the batched engine), so a
 checkpoint holds the JAX package's per-channel arrays.
@@ -30,11 +35,11 @@ import torch
 
 from carta1_tpu_torch import constants as C
 from carta1_tpu_torch.framedata import FrameData
-from carta1_tpu_torch.gold.coding import allocate_bits_sf, quantize_js
+from carta1_tpu_torch.gold.coding import allocate_bits_sf, find_scale_factors, quantize_js
 from carta1_tpu_torch.gold.fftjs import magnitude_spectrum_js
 from carta1_tpu_torch.gold.transforms import mdct, mdct_masked, qmf_analysis_stream
 from carta1_tpu_torch.gold.transient import transient_score
-from carta1_tpu_torch.ops.coding import find_scale_factors, group_bfus
+from carta1_tpu_torch.ops.coding import group_bfus
 from carta1_tpu_torch.ops.common import shift_frames
 from carta1_tpu_torch.ops.qmf import delay_stream
 from carta1_tpu_torch.options import EncoderOptions
@@ -157,5 +162,7 @@ def exact_encode_step(pcm: torch.Tensor, state: dict, options: EncoderOptions,
 def gold_encode_frames(pcm, options: EncoderOptions | None = None, state: dict | None = None, device=None,
                        plain: bool = False) -> tuple[FrameData, dict]:
     """Public entry: the exact encode of [..., F, 512] f32 PCM (NumPy or
-    tensor; a leading axis batches channels) on `device` (default: the card)."""
+    tensor; a leading axis batches channels) on `device` (default: the card).
+    On non-finite input the units are gold's only up to the scale factors
+    (the module docstring)."""
     return encode_entry(pcm, options, state, device, lambda x, st, o: exact_encode_step(x, st, o, plain))

@@ -115,14 +115,14 @@ def wav_header(channels: int, num_samples: int, sample_rate: int = SAMPLE_RATE) 
 
 
 def write_wav(path: str, pcm: np.ndarray, sample_rate: int = SAMPLE_RATE) -> None:
-    """pcm: int16 [channels, num_samples] (or [num_samples]) -> WAV file.
+    """pcm: [channels, num_samples] (or [num_samples]) -> 16-bit PCM WAV.
 
-    The JAX package's `write_wav` takes f32 and converts it; here the
-    samples are int16 already (the decoder converts on the card, or
-    `float_to_int16` on the host), and anything else raises."""
+    Float samples are converted with `float_to_int16`, as the JAX package's
+    `write_wav` converts them; int16 samples (the decoder's, converted on
+    the card) are written as they are."""
     pcm = np.atleast_2d(np.asarray(pcm))
     if pcm.dtype != np.int16:
-        raise TypeError(f"write_wav takes int16 samples, got {pcm.dtype}")
+        pcm = float_to_int16(pcm)
     channels, n = pcm.shape
     interleaved = np.ascontiguousarray(pcm.T).astype("<i2")
     with open(path, "wb") as f:

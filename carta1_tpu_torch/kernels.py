@@ -202,6 +202,8 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int, align: in
     """Validate what a kernel takes: dtype, rank, contiguity, device type,
     and, on the card, the byte alignment of its first element (the kernels'
     vector copies need it)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: need a tensor, got {type(t).__name__}")
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(
             f"{name}: need a contiguous {dtype} tensor of rank {ndim}, got "

@@ -79,6 +79,7 @@ def transcode_corpus(
     jobs: Sequence[tuple[str, str]],
     mode: str = "encode",
     options: EncoderOptions | None = None,
+    engine: str = "tpu",
     chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     checkpoint_path: str | None = None,
     process_index: int | None = None,
@@ -86,8 +87,8 @@ def transcode_corpus(
     max_retries: int = 1,
     on_file_done: Callable[[str, int], None] | None = None,
     mesh="auto",
+    *,
     device=None,
-    engine: str = "tpu",
 ) -> CorpusResult:
     """Transcode a corpus of (input, output) jobs.
 

@@ -157,7 +157,8 @@ def _sharded(inputs: tuple, step: Callable, init_state: Callable, state: dict | 
     return outputs, final
 
 
-def encode_frames_sharded(pcm, options: EncoderOptions | None = None, mesh=None, state: dict | None = None):
+def encode_frames_sharded(pcm, options: EncoderOptions | None = None, mesh=None,
+                          state: dict | None = None) -> tuple[FrameData, dict]:
     """pcm [F, 512] or [C, F, 512] (f32, or raw int16 samples converted on
     each device) -> (FrameData, state after frame F - 1), the frames split across the mesh
     (default: every visible card), the result on the mesh's first device.

@@ -82,7 +82,7 @@ def _state(tails: list, low_d: torch.Tensor, mid_d: torch.Tensor, high_d: torch.
 
 
 def decode_frames(
-    fd: FrameData, state: dict | None = None, device=None, plain: bool = False, fast: bool = False
+    fd: FrameData, state: dict | None = None, fast: bool = False, *, device=None, plain: bool = False
 ) -> tuple[torch.Tensor, dict]:
     """Public entry: decode FrameData on `device` (default: the card);
     `fast=True` takes `decode_step_fast`."""

@@ -15,8 +15,15 @@ batched encoder (`pipeline/encoder.py`, f32 transforms and the
 measured-distortion allocator, kernel K4), which in the port runs on the
 card; `engine="exact"` is the exact encoder (`gold/`: f64 transforms on
 kernel K6 and the reference's heap allocator, kernel K5), whose units are
-byte-equal to the reference JavaScript's.  Both decode with the bit-exact
+byte-equal to the reference JavaScript's (on non-finite input only as far
+as the scale factors: `gold/encoder.py`).  Both decode with the bit-exact
 decoder, so `engine` changes nothing there but its check.
+
+`encode_pcm`, `decode_units`, `encode_file` and `decode_file` take the JAX
+package's parameters first, in its order and with its defaults, so a
+positional call written for `carta1_tpu` binds the same parameters here;
+the port's own parameters (`device`, `plain`, `to_i16`) come after a bare
+`*` and are keyword-only.
 
 `encode_file` and `decode_file` stream files through the same chunks with
 O(chunk) host memory: a memmapped reader feeds each chunk, and a chunk's
@@ -99,11 +106,12 @@ def _encode_batch_dev(frames: torch.Tensor, options: EncoderOptions, state: dict
 def encode_pcm(
     pcm: np.ndarray,
     options: EncoderOptions | None = None,
-    device=None,
-    chunk_frames: int = DEFAULT_CHUNK_FRAMES,
-    plain: bool = False,
     engine: str = "tpu",
+    chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     on_progress: Callable[[int, int], None] | None = None,
+    *,
+    device=None,
+    plain: bool = False,
 ) -> np.ndarray:
     """pcm: f32 (or raw int16) [channels, N] -> interleaved sound units uint8 [F*C, 212].
 
@@ -111,7 +119,8 @@ def encode_pcm(
     fixed-size chunks with the stream state carried; the units of every
     chunk stay on the device until the end.  `engine` is "tpu" (the
     batched encoder) or "exact" (units byte-equal to the reference's; the
-    module docstring).  `plain=True` runs the kernels' plain PyTorch
+    module docstring; on non-finite input its units are specified only up
+    to the scale factors).  `plain=True` runs the kernels' plain PyTorch
     versions (the kernels' yardstick).  `on_progress(done, total)` is
     called once per chunk, after the chunk is queued, with the frames
     queued so far and the frames in all, as the JAX package calls it; it
@@ -155,12 +164,13 @@ def _decode_batch_dev(units: torch.Tensor, state: dict | None, to_i16: bool = Fa
 def decode_units(
     units: np.ndarray,
     channel_count: int,
-    device=None,
+    engine: str = "tpu",
     chunk_frames: int = DEFAULT_CHUNK_FRAMES,
+    on_progress: Callable[[int, int], None] | None = None,
+    *,
+    device=None,
     to_i16: bool = False,
     plain: bool = False,
-    engine: str = "tpu",
-    on_progress: Callable[[int, int], None] | None = None,
 ) -> torch.Tensor:
     """Interleaved sound units uint8 [N, 212] -> PCM [channels, F*512] on `device`.
 
@@ -341,16 +351,17 @@ def encode_file(
     input_wav: str,
     output_aea: str,
     options: EncoderOptions | None = None,
+    engine: str = "tpu",
     title: str = "",
     chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     on_progress: Callable[[int, int], None] | None = None,
     checkpoint: str | None = None,
     checkpoint_every: int = 4,
+    mesh=None,
     timings: dict | None = None,
+    *,
     device=None,
     plain: bool = False,
-    mesh=None,
-    engine: str = "tpu",
 ) -> TranscodeResult:
     """Bounded-memory streaming encode: memmapped WAV in, incremental AEA out
     (bin/cli.js:165-354), on the card unless `device="cpu"`, with `engine`
@@ -418,15 +429,16 @@ def encode_file(
 def decode_file(
     input_aea: str,
     output_wav: str,
+    engine: str = "tpu",
     chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     on_progress: Callable[[int, int], None] | None = None,
     checkpoint: str | None = None,
     checkpoint_every: int = 4,
+    mesh=None,
     timings: dict | None = None,
+    *,
     device=None,
     plain: bool = False,
-    mesh=None,
-    engine: str = "tpu",
 ) -> TranscodeResult:
     """Bounded-memory streaming decode (the mirror of `encode_file`): each
     chunk's units are uploaded, decoded bit-exactly and converted to int16

@@ -67,7 +67,7 @@ Phases (each raises on failure; nothing is caught):
      failed with no output, a resumed run skips the 8) and two gloo
      processes of `python -m carta1_tpu_torch.parallel.multihost` on cuda:0
      (disjoint, complete); walls and the corpus's realtime multiple.
-     Phases 9 and 10 write under build/ and delete it at the end;
+     Phases 9, 10 and 13 write under build/ and delete it after 13;
  11. the exact engine (engine="exact"): (a) the golden signal's stored
      input through encode_pcm on the card, units byte-equal to
      tests/fixtures/golden.aea, decoded to int16 equal to golden_decode.npz;
@@ -98,7 +98,15 @@ Phases (each raises on failure; nothing is caught):
      launched); overlap_add_js, find_scale_factors and dequantize_js on the
      card against the CPU; K1 and K6 timed at a non-instance scale; then
      encode_pcm / decode_units with on_progress on phase 6's prefix (the
-     calls listed, units and int16 equal to phase 6's); the phase's walls.
+     calls listed, units and int16 equal to phase 6's); the phase's walls;
+ 13. the JAX package's calling contract on the card: the positional calls a
+     user of carta1_tpu writes (encode_file(wav, aea, None, "exact"),
+     decode_file(aea, wav, "exact"), encode_pcm(pcm, options, "exact"),
+     decode_units(units, 2, "exact"), the same with "tpu" and chunk_frames,
+     decode_frames(fd, None, True)) against the keyword calls and against
+     phases 6 and 9 (phase 9's files, phase 6's prefix), byte for byte;
+     launch counters reset just before and read just after (every kernel
+     but K4's reference allocator must have launched).
 
 The last lines are a JSON `kernels` line, the card's name and power limit,
 and the result line.  The full record (every timing, the profile) goes to
@@ -1090,6 +1098,82 @@ def gold_surface_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor
             "seconds": wall, "card": smi}
 
 
+def contract_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, options, work: str,
+                   dev: torch.device, smi: str) -> dict:
+    """Phase 13: the JAX package's calling contract on the card.  The calls
+    a user of `carta1_tpu` writes, with its positional order (the engine
+    third or fourth), against the same calls by keyword and against phases
+    6 and 9: encode_file / decode_file on phase 9's files in `work`,
+    encode_pcm / decode_units on phase 6's prefix, decode_frames with `fast`
+    third; engine="exact" and "tpu".  pcm16 is phase 6's stream ([C, F,
+    512] int16), `units` and `pcm` its units and int16 on the card."""
+    from carta1_tpu_torch import decode_file, decode_frames, decode_units, encode_file, encode_pcm, kernels
+    from carta1_tpu_torch.io.aea import read_aea
+    from carta1_tpu_torch.ops.bitpack import unpack_frames
+
+    t_phase = time.perf_counter()
+    p = {k: os.path.join(work, k) for k in ("in.wav", "out.aea", "out.wav", "pos.aea", "kw.aea", "pos.wav", "kw.wav",
+                                           "tpu.aea", "tpu.wav")}
+    nch, nframes = pcm16.shape[:2]
+    compared = []
+
+    def holds(label: str, ok: bool) -> None:
+        if not ok:
+            raise AssertionError(f"calling contract: not {label}")
+        compared.append(label)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    # the files: the exact engine named fourth (encode) and third (decode), then the batched one
+    encode_file(p["in.wav"], p["pos.aea"], None, "exact")
+    encode_file(p["in.wav"], p["kw.aea"], engine="exact")
+    holds("encode_file(wav, aea, None, 'exact') == engine='exact'", _read(p["pos.aea"]) == _read(p["kw.aea"]))
+    meta, exact_units = read_aea(p["pos.aea"])
+    if meta.title != "" or exact_units.shape != (nch * nframes, 212):
+        raise AssertionError(f"calling contract: exact encode_file wrote title {meta.title!r}, {exact_units.shape}")
+    decode_file(p["pos.aea"], p["pos.wav"], "exact")
+    decode_file(p["pos.aea"], p["kw.wav"], engine="exact")
+    holds("decode_file(aea, wav, 'exact') == engine='exact'", _read(p["pos.wav"]) == _read(p["kw.wav"]))
+    encode_file(p["in.wav"], p["tpu.aea"], options, "tpu", "smoke", CHUNK)
+    holds("encode_file(wav, aea, options, 'tpu', 'smoke', CHUNK) == phase 9's file",
+          _read(p["tpu.aea"]) == _read(p["out.aea"]))
+    holds("exact units != the batched engine's", exact_units.tobytes() != read_aea(p["tpu.aea"])[1].tobytes())
+    decode_file(p["out.aea"], p["tpu.wav"], "tpu", CHUNK)
+    holds("decode_file(aea, wav, 'tpu', CHUNK) == phase 9's file", _read(p["tpu.wav"]) == _read(p["out.wav"]))
+
+    # the streams on phase 6's prefix
+    flat16 = pcm16.reshape(nch, -1)
+    pre = min(2 * CHUNK, nframes)
+    u_exact = encode_pcm(flat16[:, :pre * 512], options, "exact")
+    holds("encode_pcm(pcm, options, 'exact') == engine='exact'",
+          u_exact.tobytes() == encode_pcm(flat16[:, :pre * 512], options, engine="exact").tobytes())
+    holds("encode_pcm exact == encode_file exact on the prefix", u_exact.tobytes() == exact_units[:nch * pre].tobytes())
+    d_exact = decode_units(u_exact, nch, "exact")
+    holds("decode_units(units, 2, 'exact') == engine='exact'",
+          not _mismatch(d_exact, decode_units(u_exact, nch, engine="exact"))[0])
+    u_tpu = encode_pcm(flat16[:, :pre * 512], options, "tpu", CHUNK)
+    want_units = units[:, :pre].cpu().numpy()
+    holds("encode_pcm(pcm, options, 'tpu', CHUNK) == phase 6's prefix",
+          all(np.array_equal(u_tpu[ch::nch], want_units[ch]) for ch in range(nch)))
+    holds("decode_units(units, 2, 'tpu', CHUNK, to_i16=True) == phase 6's prefix",
+          not _mismatch(decode_units(u_tpu, nch, "tpu", CHUNK, to_i16=True), pcm[:, :pre].reshape(nch, -1))[0])
+
+    # decode_frames with `fast` third
+    fd = unpack_frames(torch.from_numpy(np.ascontiguousarray(u_tpu[0::nch][:CHUNK])).to(dev))
+    fast, _ = decode_frames(fd, None, True)
+    holds("decode_frames(fd, None, True) == fast=True", not _mismatch(fast, decode_frames(fd, fast=True)[0])[0])
+    holds("decode_frames(fd, None, True) != fast=False", not torch.equal(fast, decode_frames(fd, None, False)[0]))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k, v in launches.items() if v == 0 and k != "alloc_reference"]
+    if missing:
+        raise AssertionError(f"calling contract: the calls launched no {missing}: {launches}")
+    wall = time.perf_counter() - t_phase
+    print(f"calling contract: {len(compared)} JAX-order positional calls on {smi} equal to the keyword calls and "
+          f"to phases 6 and 9 ({'; '.join(compared)}); launches {launches}; phase 13 took {wall:.1f} s")
+    return {"compared": compared, "launches": launches, "seconds": wall, "card": smi}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--record", default=os.path.join("build", "chip_smoke.json"),
@@ -1210,12 +1294,12 @@ def main() -> int:
         table_bytes = (size // 2) * 8 + 2 * (n - 1) * 8
         check(f"imdct_exact_{size}", [(x, size)], imdct_kernels.imdct_mid_plain,
               imdct_kernels.imdct_mid, x.numel() * 8 + table_bytes, ops, reps=50, edge_cases=edges,
-              conversions=_imdct_conversions(batch, n))
+              library=lambda x=x: torch.fft.fft(x), conversions=_imdct_conversions(batch, n))
 
     works = [(torch.from_numpy(rng.standard_normal((frames, 46 + 2 * s)).astype(np.float32)).to(dev),)
              for s in (128, 256)]
-    print("imdct_exact: library_ms null -- no single PyTorch call computes these bits "
-          "(an FFT-based IMDCT rounds at other points)")
+    print("imdct_exact: library_ms is torch.fft.fft of the same rows, as for fft_js (a speed reference only: no "
+          f"PyTorch call computes these bits, an FFT-based IMDCT rounds at other points); on {smi}")
     # speed reference only: conv1d sums K2's taps in another order
     synth = torch.zeros((2, 1, 48), dtype=torch.float64, device=dev)
     synth[0, 0, 1::2] = torch.from_numpy(QMF_ODD.astype(np.float64))
@@ -1269,6 +1353,12 @@ def main() -> int:
           f"{rows[-1]['ms']:.4f} ms")
     wl = bitalloc_kernels.alloc_rdo(bfu, sf, bias)
     wl_ref = bitalloc_kernels.alloc_reference(sf, bias)
+    # what alloc_reference's time buys: a frame's merge is a serial chain of
+    # accepted steps, each raising one word length by one, in one warp per frame
+    steps = wl_ref.sum(dim=1).double()
+    rows[-1]["chain_per_frame"] = {"steps": float(steps.mean()), "warp_longest_chain": float(steps.max()),
+                                   "ns_per_link": rows[-1]["ms"] * 1e6 / float(steps.mean()),
+                                   "ns_per_link_longest": rows[-1]["ms"] * 1e6 / float(steps.max()), "card": smi}
     print(f"alloc_rdo: main-path inputs [{frames}, {C.NUM_BFUS}, {C.MAX_BFU_SIZE}] f32 + [{frames}, {C.NUM_BFUS}] i32; "
           f"{active.float().mean().item():.3f} of BFUs with a scale factor, {coeffs} coefficients; accepted steps per "
           f"frame {wl.float().sum(dim=1).mean().item():.2f} (reference allocator "
@@ -1339,6 +1429,11 @@ def main() -> int:
         raise AssertionError(f"encoder checks launched not both allocators: {launches_p5}")
     print(f"encoder checks: launches {launches_p5}")
     record["launches_phase5"] = launches_p5
+    chain = next(r for r in rows if r["name"] == "alloc_reference")["chain_per_frame"]
+    print(f"alloc_reference per frame of phase 3's main-path chunk ({frames} frames, one warp each): accepted steps "
+          f"(the sum of its word lengths) {chain['steps']:.2f} mean over warps, {chain['warp_longest_chain']:.0f} "
+          f"the largest; {chain['ns_per_link']:.1f} ns per link of the mean chain, "
+          f"{chain['ns_per_link_longest']:.1f} of the longest (phase 3's {frames}-frame time); on {smi}")
 
     # what ceil(3 * (log2(a) + 21)) in f32 makes of amplitudes around every table
     # value, on the card and on the CPU, against the table comparison the port uses
@@ -1499,9 +1594,8 @@ def main() -> int:
 
     # 10. the sharded paths, the fast decoder, the streams and the corpus
     t10 = time.perf_counter()
-    record["phase10"] = sharded_phase(pcm16, units, pcm, options, walls, os.path.join("build", "chip_smoke_files"),
-                                      golden_units, golden, dev)
-    shutil.rmtree(os.path.join("build", "chip_smoke_files"))
+    work = os.path.join("build", "chip_smoke_files")
+    record["phase10"] = sharded_phase(pcm16, units, pcm, options, walls, work, golden_units, golden, dev)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s")
     for row in rows:
         row["launches_sharded"] = record["phase10"]["launches_sharded"][row["name"]]
@@ -1516,6 +1610,12 @@ def main() -> int:
     record["phase12"] = gold_surface_phase(pcm16, units, pcm, options, dev, smi)
     for row in rows:
         row["launches_gold_surface"] = record["phase12"]["launches"][row["name"]]
+
+    # 13. the JAX package's calling contract on the card, on phase 9's files
+    record["phase13"] = contract_phase(pcm16, units, pcm, options, work, dev, smi)
+    shutil.rmtree(work)
+    for row in rows:
+        row["launches_contract"] = record["phase13"]["launches"][row["name"]]
 
     record["kernels"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

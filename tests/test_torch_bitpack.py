@@ -116,5 +116,5 @@ def test_write_wav_matches_jax_package(tmp_path):
     jax_wav.write_wav(str(tmp_path / "want.wav"), pcm)
     wav.write_wav(str(tmp_path / "got.wav"), float_to_int16(torch.from_numpy(pcm)).numpy())
     assert (tmp_path / "got.wav").read_bytes() == (tmp_path / "want.wav").read_bytes()
-    with pytest.raises(TypeError):
-        wav.write_wav(str(tmp_path / "x.wav"), pcm)
+    wav.write_wav(str(tmp_path / "f32.wav"), pcm)                  # f32, converted as the JAX package does
+    assert (tmp_path / "f32.wav").read_bytes() == (tmp_path / "want.wav").read_bytes()

@@ -7,8 +7,15 @@ each upper-case constant, must have a counterpart in the module of
 that accepts every one of those parameter names, so that keyword callers
 work; or it is in `DELIBERATE`, with the reason it is left out.  The port
 may add parameters of its own (`device`, `plain`, `to_i16`).  No entry of
-`DELIBERATE` may have a counterpart, so the list cannot go stale.  One case
-per module of the JAX package; no JAX function is compiled.
+`DELIBERATE` may have a counterpart, so the list cannot go stale.
+
+Positional callers work too: the JAX package's positional parameters of
+each function and class, less those in `DELIBERATE`, are a prefix, in
+order, of the counterpart's (an entry `name[order]` records a different
+positional contract).  Return annotations agree, `jax.Array` and
+`jnp.ndarray` reading as `torch.Tensor`, except where `RETURNS` records
+the departure and why.  One case per module of the JAX package for each
+of the three; no JAX function is compiled.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import pathlib
 import re
 
 import pytest
+import torch
 
 JAX_ROOT = pathlib.Path(__file__).resolve().parent.parent / "carta1_tpu"
 _UPPER = re.compile(r"^[A-Z][A-Z0-9_]*$")
@@ -69,35 +77,64 @@ DELIBERATE = {
     ("ops.bitpack_pallas", "window_reduce_pallas(h)"): "K3 reads each field at its bit offset and width "
     "(read_fields(win32, offsets, widths, ...)), not a window at an anchor index",
     ("ops.bitpack_pallas", "window_reduce_pallas(block_frames)"): "the TPU grid's block; K3's is fixed",
+    ("ops.bitpack_pallas", "window_reduce_pallas[order]"): "K3 takes each field's bit offset and width, "
+    "read_fields(win32, offsets, widths, j_lo, j_hi), where the TPU kernel takes anchor indices "
+    "(win32, h, j_lo, j_hi); a call in the JAX order raises (test_k3_rejects_a_jax_order_call)",
 }
 
+# JAX modules whose functions return tensors where the JAX package's return
+# NumPy arrays: np.ndarray in their return annotations reads as torch.Tensor
+NUMPY_AS_TENSOR = {
+    m: "the gold functions run on the kernels: they take and return tensors where gold uses NumPy arrays"
+    for m in ("gold.coding", "gold.decoder", "gold.encoder", "gold.fftjs", "gold.transforms", "gold.transient")
+}
+# return annotations that depart from the JAX package's on purpose (after
+# NUMPY_AS_TENSOR): (JAX module, name) -> (the port's annotation, why)
+RETURNS = {
+    **{("gold.transforms", f): ("np.ndarray", "the f64 basis is a host table, NumPy as in gold")
+       for f in ("mdct_basis", "imdct_basis")},
+    ("processor", "decode_units"): ("torch.Tensor", "the PCM stays on the device it was decoded on (int16 "
+                                    "with to_i16); the JAX package fetches a NumPy array"),
+    ("parallel.sharding", "encode_frames_sharded"): ("tuple[FrameData, dict]", "the state after the last "
+                                                     "frame comes back too, so that chunks carry it"),
+    ("parallel.sharding", "decode_frames_sharded"): ("tuple[torch.Tensor, dict]", "the state after the last "
+                                                     "frame comes back too, so that chunks carry it"),
+    ("ops.tables", "encoder_mdct_tables"): ("dict[str, np.ndarray]", "NumPy matrices, moved to a device "
+                                            "by their users; the JAX package keeps tuples of them"),
+}
+_JAX_ARRAY = re.compile(r"\b(?:jax\.Array|jnp\.ndarray|jax\.numpy\.ndarray)\b")
 
-def _params(fn: ast.FunctionDef) -> list[str]:
+
+def _params(fn: ast.FunctionDef) -> tuple[list[str], list[str]]:
+    """(every parameter name, the positional ones)."""
     a = fn.args
-    return [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs]
+    pos = [p.arg for p in a.posonlyargs + a.args]
+    return pos + [p.arg for p in a.kwonlyargs], pos
 
 
-def jax_surface(path: pathlib.Path) -> dict[str, tuple[str, list[str]]]:
-    """name -> (kind, parameter names) of a module's public functions and
-    classes (a class's `__init__` parameters, or its annotated fields),
-    upper-case constants and `__all__` names."""
-    out: dict[str, tuple[str, list[str]]] = {}
+def jax_surface(path: pathlib.Path) -> dict[str, tuple[str, list[str], list[str], str | None]]:
+    """name -> (kind, parameter names, positional parameter names, return
+    annotation or None) of a module's public functions and classes (a
+    class's `__init__` parameters, or its annotated fields, which a
+    dataclass takes in order), upper-case constants and `__all__` names."""
+    out: dict[str, tuple[str, list[str], list[str], str | None]] = {}
     for node in ast.parse(path.read_text()).body:
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and not node.name.startswith("_"):
-            out[node.name] = ("function", _params(node))
+            out[node.name] = ("function", *_params(node), ast.unparse(node.returns) if node.returns else None)
         elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
             init = [n for n in node.body if isinstance(n, ast.FunctionDef) and n.name == "__init__"]
             fields = [n.target.id for n in node.body if isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name)]
-            out[node.name] = ("class", _params(init[0])[1:] if init else fields)
+            params, pos = (p[1:] for p in _params(init[0])) if init else (fields, fields)
+            out[node.name] = ("class", params, pos, None)
         elif isinstance(node, (ast.Assign, ast.AnnAssign)):
             targets = node.targets if isinstance(node, ast.Assign) else [node.target]
             names = [n for t in targets for n in ([t] if isinstance(t, ast.Name) else getattr(t, "elts", []))]
             for n in names:
                 if isinstance(n, ast.Name) and _UPPER.match(n.id):
-                    out[n.id] = ("constant", [])
+                    out[n.id] = ("constant", [], [], None)
                 elif isinstance(n, ast.Name) and n.id == "__all__":
                     for e in node.value.elts:
-                        out.setdefault(e.value, ("export", []))
+                        out.setdefault(e.value, ("export", [], [], None))
     return out
 
 
@@ -147,7 +184,7 @@ def test_port_has_every_public_name_of_the_jax_module(module):
         return
     assert _port_module(module) is not None, f"the port has no module for carta1_tpu.{module}"
     faults = []
-    for name, (kind, params) in jax_surface(_jax_path(module)).items():
+    for name, (kind, params, _, _) in jax_surface(_jax_path(module)).items():
         if (module, name) in DELIBERATE:
             continue
         obj = _counterpart(module, name)
@@ -171,8 +208,12 @@ def test_deliberate_entries_have_no_counterpart():
         if what == "*":
             assert _port_module(module) is None, f"{module}: the port has it now"
             continue
-        name, _, param = what.partition("(")
         surface = jax_surface(_jax_path(module))
+        if what.endswith("[order]"):                 # a counterpart with another positional contract
+            name = what[:-len("[order]")]
+            assert name in surface and _counterpart(module, name) is not None, f"{module}.{what}: no such pair"
+            continue
+        name, _, param = what.partition("(")
         assert name in surface, f"DELIBERATE names {module}.{name}, which the JAX package does not have"
         obj = _counterpart(module, name)
         if param:
@@ -181,3 +222,102 @@ def test_deliberate_entries_have_no_counterpart():
             assert obj is not None and _accepts(obj, [param]), f"{module}.{name}: the port takes {param} now"
         else:
             assert obj is None, f"{module}.{name}: the port has it now"
+
+
+def _positional(obj) -> list[str]:
+    return [p.name for p in inspect.signature(obj).parameters.values()
+            if p.kind in (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)]
+
+
+def _order_faults(module: str) -> dict[str, str]:
+    """name -> fault, for each function or class of the JAX module whose
+    positional parameters (less the DELIBERATE ones) are no prefix of its
+    counterpart's."""
+    faults = {}
+    for name, (kind, _, pos, _) in jax_surface(_jax_path(module)).items():
+        obj = _counterpart(module, name)
+        if kind not in ("function", "class") or (module, name) in DELIBERATE or obj is None:
+            continue                  # left out, or a missing name, which the keyword case reports
+        want = [p for p in pos if (module, f"{name}({p})") not in DELIBERATE]
+        got = _positional(obj)
+        if got[:len(want)] != want:
+            faults[name] = f"{name}: positional {got} does not start with the JAX package's {want}"
+    return faults
+
+
+@pytest.mark.parametrize("module", JAX_MODULES, ids=lambda m: m or "__init__")
+def test_port_takes_the_jax_modules_positional_parameters_in_order(module):
+    """A positional call written for `carta1_tpu` binds the same parameters in
+    the port: the port's own parameters come after the JAX package's."""
+    if (module, "*") in DELIBERATE:
+        return
+    faults = [f for name, f in _order_faults(module).items() if (module, f"{name}[order]") not in DELIBERATE]
+    assert not faults, f"carta1_tpu.{module}: " + "; ".join(faults)
+
+
+def _annotation(ann) -> str | None:
+    if ann is inspect.Signature.empty:
+        return None
+    text = ann if isinstance(ann, str) else inspect.formatannotation(ann)
+    return ast.unparse(ast.parse(text, mode="eval"))
+
+
+def _return_departures(module: str) -> dict[str, tuple[str, str | None]]:
+    """name -> (the JAX annotation as the port would spell it, the port's)
+    for each function whose return annotations differ."""
+    out = {}
+    for name, (kind, _, _, ret) in jax_surface(_jax_path(module)).items():
+        obj = _counterpart(module, name)
+        if kind != "function" or ret is None or (module, name) in DELIBERATE or obj is None:
+            continue
+        want = _JAX_ARRAY.sub("torch.Tensor", ret)
+        if module in NUMPY_AS_TENSOR:
+            want = re.sub(r"\bnp\.ndarray\b", "torch.Tensor", want)
+        want = ast.unparse(ast.parse(want, mode="eval"))
+        got = _annotation(inspect.signature(obj).return_annotation)
+        if got != want:
+            out[name] = (want, got)
+    return out
+
+
+@pytest.mark.parametrize("module", JAX_MODULES, ids=lambda m: m or "__init__")
+def test_port_returns_what_the_jax_module_returns(module):
+    """Every return annotation of the JAX module (arrays read as tensors) is
+    the counterpart's, unless `RETURNS` records the departure."""
+    if (module, "*") in DELIBERATE:
+        return
+    faults = []
+    for name, (want, got) in _return_departures(module).items():
+        recorded = RETURNS.get((module, name))
+        if recorded is None:
+            faults.append(f"{name} returns {got}, the JAX package {want}")
+        elif got != recorded[0]:
+            faults.append(f"{name} returns {got}, RETURNS records {recorded[0]}")
+    assert not faults, f"carta1_tpu.{module}: " + "; ".join(faults)
+
+
+def test_recorded_departures_are_still_departures():
+    """Each `[order]` entry of DELIBERATE, each entry of RETURNS and each
+    module of NUMPY_AS_TENSOR names a difference the port still has, so no
+    list can go stale."""
+    for (module, what), reason in DELIBERATE.items():
+        if what.endswith("[order]"):
+            assert what[:-len("[order]")] in _order_faults(module), f"{module}.{what}: the order agrees now"
+    for (module, name), (_, reason) in RETURNS.items():
+        assert reason and name in _return_departures(module), f"{module}.{name}: the return annotation agrees now"
+    for module, reason in NUMPY_AS_TENSOR.items():
+        returns = [ret for _, _, _, ret in jax_surface(_jax_path(module)).values() if ret]
+        assert reason and any("np.ndarray" in r for r in returns), f"{module} returns no NumPy array"
+
+
+def test_k3_rejects_a_jax_order_call():
+    """The TPU kernel's call `window_reduce_pallas(win32, h, j_lo, j_hi)`
+    raises against K3's wrapper instead of reading other bits."""
+    from carta1_tpu_torch.ops.bitpack_kernels import read_fields
+
+    win32 = torch.zeros((4, 128), dtype=torch.int32)
+    h = torch.zeros((4, 52), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        read_fields(win32, h, 0, 128)
+    with pytest.raises(TypeError):
+        read_fields(win32, h, 0, 128, 256)                   # with the TPU kernel's block_frames
