@@ -21,7 +21,7 @@
 // then every valid step, in descending order of p with ties to the lower
 // (BFU, step), is paid for from the budget (1136 bits) if it fits, and
 // abandons its BFU if it does not.  The reference allocator's p is
-// 1024 - rank[sf][i] (ops/bitalloc.py _rank_table), valid where sf > 0.
+// 1023 - rank[sf][i] (ops/bitalloc.py _rank_table), valid where sf > 0.
 // Every f32 operation is an explicit round-to-nearest intrinsic or an
 // exact one (trunc, min, max, copysign); the build adds -fmad=false and no
 // fast-math flag, so nothing is contracted or flushed to zero.  The one
@@ -59,6 +59,34 @@
 // lowest BFU that holds the maximum and a shuffle of its cost; the winning
 // lane advances its head through the valid mask.  Outputs leave as
 // coalesced stores.
+//
+// The reference allocator (alloc_reference_kernel) reads 208 bytes a frame
+// and does no arithmetic to speak of; what bounds it is each frame's serial
+// chain.  Its first design ran the merge above on rank prices, one pop per
+// accepted step (66 a frame on music), each pop a reduction, two ballots, a
+// shuffle and two dependent table loads: about 1 us a pop at 16,384 frames.
+// A pop that is one reduction on the packed key below was no faster (the
+// chain's latency sets the pace), so this design pops only after the
+// sweep's first failure:
+//   * the sweep pays for every candidate before the first one that does not
+//     fit, so the warp bisects for the largest rank r whose lower ranks all
+//     fit: spent(r) = sum over BFUs of specs[b] * bits[count[r][sf_b]] <=
+//     budget, where count[r][s] is the number of steps of scale factor s
+//     ranked below r (bitalloc_kernels.reference_tables, a [levels + 1, 64]
+//     byte table read by row r, so a warp's loads fall in one 64-byte line),
+//     one __reduce_add_sync per step, ceil(log2(levels + 1)) steps (8 at
+//     bias 1, 10 at 0.7);
+//   * the steps of rank r, one per BFU at most, are taken in BFU order by a
+//     warp prefix sum: those whose running cost fits are paid, the first
+//     that does not is abandoned;
+//   * what is left of the budget is below that step's cost (at most 40
+//     bits), so the rest is a short merge: each lane's head is one key
+//     (1023 - rank) << 12 | (63 - b) << 6 | cost, 0 when it no longer fits,
+//     and one __reduce_max_sync names the winner, its BFU and its cost (the
+//     largest key is the lowest rank, ties to the lower BFU, exactly the
+//     sweep's order).  About one pop a frame on music.
+// testing.bisect_sweep_reference is this loop in NumPy, held to the plain
+// version on the CPU.
 #include "exact.cuh"
 
 #include <cuda_pipeline_primitives.h>
@@ -228,13 +256,6 @@ struct SharedPrice {
   }
 };
 
-struct RankPrice {
-  const int* rank;
-  __device__ __forceinline__ unsigned operator()(const Head& h) const {
-    return 1024u - static_cast<unsigned>(__ldg(rank + table_row(h.s) * kSteps + h.pos));
-  }
-};
-
 __global__ void __launch_bounds__(kWarps * 32) alloc_rdo_kernel(
     const float* __restrict__ bfu, const int* __restrict__ sf, const float* __restrict__ norm_tab,
     const float* __restrict__ step_tab, const float* __restrict__ weight, const float* __restrict__ per_bit,
@@ -286,19 +307,89 @@ __global__ void __launch_bounds__(kWarps * 32) alloc_rdo_kernel(
   store(out, f, lo, hi, lane);
 }
 
+constexpr unsigned kTopRank = 1023;     // ranks are below 1024 (bitalloc_kernels.reference_tables)
+constexpr int kCountRow = 64;           // bytes per rank in the count table, one per scale factor index
+
+// The reference allocator's head key of BFU b (table row t, 0 for no
+// candidate) at step n: 0 past the top step.
+__device__ __forceinline__ unsigned ref_key(const int* __restrict__ rank, const int* bits, int t, int b, int spec,
+                                            int n) {
+  if (t == 0 || n >= kSteps) return 0u;
+  const unsigned r = static_cast<unsigned>(__ldg(rank + t * kSteps + n));
+  const unsigned c = static_cast<unsigned>(spec * (bits[n + 1] - bits[n]));
+  return (kTopRank - r) << 12 | static_cast<unsigned>(63 - b) << 6 | c;
+}
+
 __global__ void __launch_bounds__(kWarps * 32) alloc_reference_kernel(
-    const int* __restrict__ sf, const int* __restrict__ rank, const int* __restrict__ cost, int* __restrict__ out,
-    long long frames, int budget) {
+    const int* __restrict__ sf, const unsigned char* __restrict__ count, const int* __restrict__ rank,
+    const int* __restrict__ specs, const int* __restrict__ bits_tab, int* __restrict__ out, long long frames,
+    int budget, int levels) {
+  __shared__ int bits[kWls];                     // bits of a BFU slot at each word length
+  if (threadIdx.x < kWls) bits[threadIdx.x] = __ldg(bits_tab + threadIdx.x);
+  __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long f = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (f >= frames) return;
   const int* sfrow = sf + f * kBfus;
-  const int slo = sfrow[lane], shi = lane + 32 < kBfus ? sfrow[lane + 32] : 0;
-  constexpr unsigned kAll = (1u << kSteps) - 1;
-  Head lo = make_head(lane, slo, slo > 0 ? kAll : 0u);
-  Head hi = make_head(lane + 32, shi, shi > 0 ? kAll : 0u);
-  merge(lo, hi, RankPrice{rank}, cost, budget, lane);
-  store(out, f, lo, hi, lane);
+  const bool has_hi = lane + 32 < kBfus;
+  const int s_lo = sfrow[lane], s_hi = has_hi ? sfrow[lane + 32] : 0;
+  const int t_lo = s_lo > 0 ? min(s_lo, 63) : 0, t_hi = s_hi > 0 ? min(s_hi, 63) : 0;
+  const int spec_lo = __ldg(specs + lane), spec_hi = has_hi ? __ldg(specs + lane + 32) : 0;
+
+  // the largest rank r whose lower ranks all fit (r = 0 if none does)
+  int lo = 0, hi = levels + 1, spent_lo = 0;
+  while (hi - lo > 1) {                                                 // warp-uniform
+    const int mid = (lo + hi) >> 1;
+    const unsigned char* row = count + mid * kCountRow;
+    const int spent = __reduce_add_sync(kFull, spec_lo * bits[__ldg(row + t_lo)] + spec_hi * bits[__ldg(row + t_hi)]);
+    if (spent <= budget) {
+      lo = mid, spent_lo = spent;
+    } else {
+      hi = mid;
+    }
+  }
+  int n_lo = __ldg(count + lo * kCountRow + t_lo), n_hi = __ldg(count + lo * kCountRow + t_hi);
+  int remaining = budget - spent_lo;
+
+  // the steps of rank lo in BFU order (0..31 on the lanes' low BFUs, then
+  // 32..51): paid while the running cost fits, the first over abandoned
+  const int c_lo = t_lo && n_lo < kSteps && __ldg(rank + t_lo * kSteps + n_lo) == lo
+                       ? spec_lo * (bits[n_lo + 1] - bits[n_lo]) : 0;
+  const int c_hi = t_hi && n_hi < kSteps && __ldg(rank + t_hi * kSteps + n_hi) == lo
+                       ? spec_hi * (bits[n_hi + 1] - bits[n_hi]) : 0;
+  int p_lo = c_lo, p_hi = c_hi;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(kFull, p_lo, d), v = __shfl_up_sync(kFull, p_hi, d);
+    if (lane >= d) p_lo += u, p_hi += v;
+  }
+  p_hi += __shfl_sync(kFull, p_lo, 31);
+  const bool take_lo = c_lo > 0 && p_lo <= remaining, take_hi = c_hi > 0 && p_hi <= remaining;
+  const unsigned over_lo = __ballot_sync(kFull, c_lo > 0 && !take_lo);
+  const unsigned over_hi = __ballot_sync(kFull, c_hi > 0 && !take_hi);
+  const int first = over_lo ? __ffs(over_lo) - 1 : over_hi ? 31 + __ffs(over_hi) : 64;
+  remaining -= static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(max(take_lo ? p_lo : 0,
+                                                                                   take_hi ? p_hi : 0))));
+  n_lo += take_lo, n_hi += take_hi;
+
+  // the rest of the sweep: the largest key that fits is paid for
+  unsigned k_lo = lane == first ? 0u : ref_key(rank, bits, t_lo, lane, spec_lo, n_lo);
+  unsigned k_hi = lane + 32 == first ? 0u : ref_key(rank, bits, t_hi, lane + 32, spec_hi, n_hi);
+  while (true) {
+    const unsigned fit_lo = static_cast<int>(k_lo & 63u) <= remaining ? k_lo : 0u;
+    const unsigned fit_hi = static_cast<int>(k_hi & 63u) <= remaining ? k_hi : 0u;
+    const unsigned top = __reduce_max_sync(kFull, max(fit_lo, fit_hi));
+    if (top == 0) break;
+    remaining -= static_cast<int>(top & 63u);
+    const int w = 63 - static_cast<int>((top >> 6) & 63u);
+    if (w == lane) {
+      k_lo = ref_key(rank, bits, t_lo, lane, spec_lo, ++n_lo);
+    } else if (w == lane + 32) {
+      k_hi = ref_key(rank, bits, t_hi, lane + 32, spec_hi, ++n_hi);
+    }
+  }
+  out[f * kBfus + lane] = n_lo;
+  if (has_hi) out[f * kBfus + lane + 32] = n_hi;
 }
 
 unsigned grid_for(long long frames) { return static_cast<unsigned>((frames + kWarps - 1) / kWarps); }
@@ -313,9 +404,13 @@ extern "C" int carta1_alloc_rdo(const float* bfu, const int* sf, const float* no
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int carta1_alloc_reference(const int* sf, const int* rank, const int* cost, int* out, long long frames,
-                                      int budget, void* stream) {
+// sf int32 [frames, 52]; count uint8 [levels + 1, 64], rank int32 [64, 15], specs int32 [52] and bits
+// int32 [16] (ops/bitalloc_kernels.py reference_tables); out int32 [frames, 52].
+extern "C" int carta1_alloc_reference(const int* sf, const unsigned char* count, const int* rank, const int* specs,
+                                      const int* bits, int* out, long long frames, int budget, int levels,
+                                      void* stream) {
+  if (levels < 0 || levels > static_cast<int>(kTopRank) + 1) return static_cast<int>(cudaErrorInvalidValue);
   alloc_reference_kernel<<<grid_for(frames), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      sf, rank, cost, out, frames, budget);
+      sf, count, rank, specs, bits, out, frames, budget, levels);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,11 @@ steps followed by the sweep equals a 52-way merge of the per-BFU lists
 with ties to the lower BFU, which is the reference's own max-heap; a BFU
 that is abandoned, or whose next step is not valid, leaves the merge.  The
 reference allocator has the same structure, with the rank table's
-priorities, which are strictly decreasing along a BFU's steps.
+priorities, which are strictly decreasing along a BFU's steps; its kernel
+first bisects for the prefix of the sweep that is all paid for
+(`reference_tables`: the steps of each scale factor below each rank) and
+merges only the rest, with one packed key per BFU
+(`testing.bisect_sweep_reference` is its NumPy model).
 
 Plain version: the candidates in sweep order (`bitalloc.rdo_candidates` or
 `reference_candidates`: one `torch.sort`) and the sweep
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from carta1_tpu_torch import kernels
-from carta1_tpu_torch.constants import MAX_BFU_SIZE, NUM_BFUS, SPECS_PER_BFU
+from carta1_tpu_torch.constants import MAX_BFU_SIZE, NUM_BFUS, SPECS_PER_BFU, WORD_LENGTH_BITS
 from carta1_tpu_torch.tables import RDO_BUDGET, RDO_CAND_COST
 
 # the tiling of csrc/alloc_sweep.cu: frames (one warp each) per block
@@ -56,7 +60,7 @@ def _kernels():
     lib = kernels.library("alloc_sweep")
     rdo, ref = lib.carta1_alloc_rdo, lib.carta1_alloc_reference
     rdo.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    ref.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    ref.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     rdo.restype = ref.restype = ctypes.c_int
     return lib, rdo, ref
 
@@ -79,6 +83,34 @@ def _rdo_tables(bias: float, device: torch.device) -> tuple[torch.Tensor, ...]:
     # the plain version weighs the errors only for bias != 1; x * 1.0 == x
     weight = ba._bias_weights(bias, device) if bias != 1.0 else torch.ones(64, device=device)
     return norm.contiguous(), step.contiguous(), weight, t["per_bit"]
+
+
+@functools.lru_cache(maxsize=None)
+def reference_tables(bias: float) -> dict[str, np.ndarray]:
+    """What the reference allocator's kernel reads, made on the host:
+
+    - rank int32 [64, 15]: `bitalloc._rank_table`, the sweep's order;
+    - count uint8 [levels + 1, 64]: count[r, s] = the steps of a BFU at
+      scale factor index s whose rank is below r (row 0, no candidate, all
+      zero), levels = the largest rank + 1;
+    - specs int32 [52], bits int32 [16]: a BFU's first n steps cost
+      specs[b] * bits[n] (`RDO_CAND_COST`, cumulated).
+
+    The kernel's key packs 1023 - rank in 10 bits and a step's cost in 6."""
+    rank = _bitalloc()._rank_table(float(bias), torch.device("cpu")).numpy()
+    levels = int(rank.max()) + 1
+    bits = WORD_LENGTH_BITS.astype(np.int32)
+    cost = SPECS_PER_BFU[:, None] * np.diff(bits)[None, :]
+    if levels > 1024 or not np.array_equal(cost.reshape(-1), RDO_CAND_COST) or RDO_CAND_COST.max() >= 64:
+        raise ValueError("alloc_reference: ranks or step costs outside the kernel's key")
+    count = (rank[None, :, :] < np.arange(levels + 1)[:, None, None]).sum(axis=-1).astype(np.uint8)
+    count[:, 0] = 0
+    return {"rank": rank, "count": np.ascontiguousarray(count), "specs": SPECS_PER_BFU.astype(np.int32), "bits": bits}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_tables(bias: float, device: torch.device) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(device) for k, v in reference_tables(bias).items()}
 
 
 def _check_sf(sf_idx: torch.Tensor, name: str) -> None:
@@ -175,11 +207,11 @@ def alloc_reference(sf_idx: torch.Tensor, allocation_bias: float, budget: int = 
     out = torch.empty((sf_idx.shape[0], NUM_BFUS), dtype=torch.int32, device=sf_idx.device)
     if sf_idx.shape[0] == 0:
         return out
-    rank = _bitalloc()._rank_table(float(allocation_bias), sf_idx.device)
-    cost, _ = _step_tables(sf_idx.device)
+    t = _reference_tables(float(allocation_bias), sf_idx.device)
     lib, _, fn = _kernels()
-    err = kernels.launch(fn, sf_idx.device, kernels.ptr(sf_idx), kernels.ptr(rank), kernels.ptr(cost),
-                         kernels.ptr(out), sf_idx.shape[0], budget)
+    err = kernels.launch(fn, sf_idx.device, *(kernels.ptr(x) for x in (sf_idx, t["count"], t["rank"], t["specs"],
+                                                                      t["bits"], out)),
+                         sf_idx.shape[0], budget, t["count"].shape[0] - 1)
     kernels.check(lib, err, "alloc_reference")
     kernels.count("alloc_reference")
     return out

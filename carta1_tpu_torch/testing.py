@@ -253,6 +253,33 @@ def alloc_edge_cases(block: int) -> list[tuple[str, np.ndarray, np.ndarray]]:
     return cases
 
 
+def reference_mixed_rows(frames: int, seed: int) -> np.ndarray:
+    """sf_idx int32 [frames, 52] for `alloc_reference` whose neighbouring
+    frames (one warp each, `bitalloc_kernels.BLOCK_FRAMES` to a block) take
+    chains of every length, these six kinds cycled: a silent frame
+    (nothing to pay), every BFU at 63 (the budget runs out at the first
+    ranks), every BFU at one scale factor (exact ties across BFUs at every
+    rank), one BFU alone (all its 15 steps fit), quiet frames (indices
+    1-12: every step cheap in rank order, long tails) and random indices
+    with a fifth of the BFUs at 0."""
+    kinds = ("silent", "all 63", "one scale factor", "one BFU", "quiet", "random")
+    rng = np.random.default_rng(seed)
+    out = np.zeros((frames, 52), np.int32)
+    for f in range(frames):
+        kind = kinds[f % len(kinds)]
+        if kind == "all 63":
+            out[f] = 63
+        elif kind == "one scale factor":
+            out[f] = rng.integers(1, 64)
+        elif kind == "one BFU":
+            out[f, rng.integers(0, 52)] = rng.integers(1, 64)
+        elif kind == "quiet":
+            out[f] = rng.integers(1, 13, 52)
+        elif kind == "random":
+            out[f] = np.where(rng.random(52) < 0.2, 0, rng.integers(1, 64, 52))
+    return out
+
+
 def rdo_errors_reference(bfu: np.ndarray, sf: np.ndarray, bias: float) -> np.ndarray:
     """`bitalloc.rdo_errors` in NumPy f32, the squared errors summed left to
     right over the 20 slots in a Python loop: f32 [F, 52, 16]."""
@@ -314,6 +341,71 @@ def merge_sweep_reference(prio: np.ndarray, valid: np.ndarray, budget: int) -> n
             out[f, b] += 1
             push(b, p + 1)
     return out
+
+
+def bisect_sweep_reference(sf: np.ndarray, tables: dict, budget: int, counts: dict | None = None) -> np.ndarray:
+    """The reference allocator's kernel (`csrc/alloc_sweep.cu`
+    `alloc_reference_kernel`) in NumPy, one row per frame as the kernel has
+    one warp per frame, on its tables (`bitalloc_kernels.reference_tables`):
+
+    1. bisect for the largest rank r whose lower ranks all fit, spent(r) =
+       sum over BFUs of specs * bits[count[r, s]] <= budget (every frame
+       takes ceil(log2(levels + 1)) steps);
+    2. the steps of rank r, in BFU order: those whose running cost fits are
+       paid, the first that does not abandons its BFU;
+    3. the rest as a merge: each BFU's next step is one key
+       (1023 - rank) << 12 | (63 - b) << 6 | cost, heads that no longer fit
+       are 0, and the largest key is paid for until none is left.
+
+    int32 [F, 52] word lengths; `counts` gets each frame's bisection
+    `steps`, the steps of rank r (`group`) and the merge's `pops`."""
+    rank, count, specs, bits = (tables[k].astype(np.int64) for k in ("rank", "count", "specs", "bits"))
+    levels = count.shape[0] - 1
+    nf, b = sf.shape[0], np.arange(52)
+    t = np.where(sf > 0, np.minimum(sf, 63), 0)                     # table rows; 0: no candidate
+
+    def spent(r: np.ndarray) -> np.ndarray:
+        return (specs * bits[count[r[:, None], t]]).sum(axis=1)
+
+    lo, hi, spent_lo, steps = np.zeros(nf, np.int64), np.full(nf, levels + 1), np.zeros(nf, np.int64), 0
+    while (hi - lo > 1).any():                                      # the same width in every frame
+        mid = (lo + hi) >> 1
+        s = spent(mid)
+        fits = s <= budget
+        lo, spent_lo, hi = np.where(fits, mid, lo), np.where(fits, s, spent_lo), np.where(fits, hi, mid)
+        steps += 1
+    n = count[lo[:, None], t]
+    remaining = budget - spent_lo
+
+    def step_cost(n: np.ndarray) -> np.ndarray:
+        return specs * (bits[np.minimum(n + 1, 15)] - bits[n])
+
+    live = (t > 0) & (n < 15)
+    c = np.where(live & (rank[t, np.minimum(n, 14)] == lo[:, None]), step_cost(n), 0)
+    p = np.cumsum(c, axis=1)
+    take = (c > 0) & (p <= remaining[:, None])
+    over = (c > 0) & ~take
+    first = np.where(over.any(axis=1), over.argmax(axis=1), 64)
+    remaining = remaining - np.where(take, p, 0).max(axis=1)
+    n = n + take
+    open_ = b[None, :] != first[:, None]                            # the abandoned BFU leaves the merge
+
+    pops = np.zeros(nf, np.int64)
+    while True:
+        live = open_ & (t > 0) & (n < 15)
+        key = ((1023 - rank[t, np.minimum(n, 14)]) << 12) | ((63 - b) << 6) | step_cost(n)
+        top = np.where(live & ((key & 63) <= remaining[:, None]), key, 0).max(axis=1)
+        go = top > 0
+        if not go.any():
+            break
+        win = 63 - ((top >> 6) & 63)
+        rows = np.flatnonzero(go)
+        n[rows, win[rows]] += 1
+        remaining = remaining - np.where(go, top & 63, 0)
+        pops += go
+    if counts is not None:
+        counts.update(steps=np.full(nf, steps), group=(c > 0).sum(axis=1), pops=pops)
+    return n.astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

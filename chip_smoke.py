@@ -106,7 +106,17 @@ Phases (each raises on failure; nothing is caught):
      decode_frames(fd, None, True)) against the keyword calls and against
      phases 6 and 9 (phase 9's files, phase 6's prefix), byte for byte;
      launch counters reset just before and read just after (every kernel
-     but K4's reference allocator must have launched).
+     but K4's reference allocator must have launched);
+ 14. the path of K4's reference allocator at full width: phase 6's stream
+     through the transcode with EncoderOptions(allocator="reference"),
+     both states carried; launch counters reset just before and read just
+     after (alloc_reference once per chunk, alloc_rdo never, every other
+     kernel of phase 6's path); word lengths, units and int16 of every chunk
+     equal to the same chunks through plain=True on the card; ms per chunk
+     (median repeat) and one chunk's encode under the profiler, each in
+     turns with phase 6's allocator; the CLI's --allocator reference on the
+     stream's first 256 frames as a WAV, units byte-equal to encode_pcm
+     with the same options.
 
 The last lines are a JSON `kernels` line, the card's name and power limit,
 and the result line.  The full record (every timing, the profile) goes to
@@ -138,11 +148,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F64_S = 17e12
 PEAK_F32_S = 33.5e12
 # which path's launch counts hold each kernel: K4's reference allocator runs
-# in phase 5 (allocator="reference"), the exact engine's K5 and K6 in phase
+# in phase 14 (allocator="reference"), the exact engine's K5 and K6 in phase
 # 11 (engine="exact"), every other kernel on the main path (phase 6)
 EXACT_KERNELS = ("alloc_heap", "fft_js_mdct_64", "fft_js_mdct_256", "fft_js_mdct_512", "fft_js_spectrum_128",
                  "fft_js_spectrum_256")
-PATHS = {"alloc_reference": "phase 5", **{k: "phase 11" for k in EXACT_KERNELS}}
+PATHS = {"alloc_reference": "phase 14", **{k: "phase 11" for k in EXACT_KERNELS}}
 
 
 def _smi() -> str:
@@ -1174,6 +1184,101 @@ def contract_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, op
     return {"compared": compared, "launches": launches, "seconds": wall, "card": smi}
 
 
+def reference_phase(pcm16: np.ndarray, dev: torch.device, smi: str) -> dict:
+    """Phase 14: phase 6's stream ([C, F, 512] int16) through the transcode
+    with EncoderOptions(allocator="reference"), both states carried, the
+    path of K4's alloc_reference at full width, timed and profiled in turns
+    with phase 6's allocator (the host's pace drifts within a run); then
+    the CLI's --allocator reference on the stream's first 256 frames
+    against encode_pcm."""
+    from carta1_tpu_torch import EncoderOptions, cli, encode_pcm, kernels
+    from carta1_tpu_torch.io.aea import read_aea
+    from carta1_tpu_torch.io.wav import write_wav
+    from carta1_tpu_torch.ops.bitpack import unpack_frames
+    from carta1_tpu_torch.processor import _decode_batch_dev, _encode_batch_dev
+
+    t0 = time.perf_counter()
+    allocators = {"reference": EncoderOptions(allocator="reference"), "rdo": EncoderOptions()}
+    options = allocators["reference"]
+    nch = pcm16.shape[0]
+
+    def upload(k: int) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(pcm16[:, k * CHUNK:(k + 1) * CHUNK])).to(dev)
+
+    def transcode(opts=options, plain: bool = False, chunks: int = CHUNKS):
+        est = dst = None
+        units_out, pcm_out = [], []
+        for k in range(chunks):
+            units, est = _encode_batch_dev(upload(k), opts, est, plain=plain)
+            pcm, dst = _decode_batch_dev(units, dst, to_i16=True, plain=plain)
+            units_out.append(units)
+            pcm_out.append(pcm)
+        return units_out, pcm_out
+
+    transcode(chunks=1)                                               # the allocator's tables
+    _sync(dev)
+    kernels.reset_launches()
+    wall, (units, pcm) = _timed(transcode, dev)
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k, v in launches.items() if v == 0 and k not in PATHS and k != "alloc_rdo"]
+    if missing or launches["alloc_reference"] != CHUNKS or launches["alloc_rdo"]:
+        raise AssertionError(f"reference allocator's transcode: launches {launches} (no {missing})")
+    units_p, pcm_p = transcode(plain=True)
+    wl_diff = [int((unpack_frames(u.reshape(-1, 212)).word_lengths != unpack_frames(v.reshape(-1, 212)).word_lengths)
+                   .sum()) for u, v in zip(units, units_p)]
+    unit_diff = [_mismatch(u, v)[0] for u, v in zip(units, units_p)]
+    pcm_diff = [_mismatch(u, v)[0] for u, v in zip(pcm, pcm_p)]
+    if any(wl_diff) or any(unit_diff) or any(pcm_diff):
+        raise AssertionError(f"reference allocator's transcode against plain=True, per chunk: word lengths {wl_diff}, "
+                             f"unit bytes {unit_diff}, int16 samples {pcm_diff} differ")
+    units_all = torch.cat(units, dim=1)
+    if units_all.shape != (nch, CHUNK * CHUNKS, 212) or any(p.shape != (nch, CHUNK, 512) or p.dtype != torch.int16
+                                                             for p in pcm):
+        raise AssertionError(f"reference allocator's transcode: units {tuple(units_all.shape)}, int16 "
+                             f"{[(tuple(p.shape), p.dtype) for p in pcm]}")
+    word_lengths = unpack_frames(units_all.reshape(-1, 212)).word_lengths
+    del units_p, pcm_p
+
+    # walls and one chunk's encode under the profiler, the two allocators in turns
+    repeats: dict = {name: [] for name in allocators}
+    for order in (("rdo", "reference"), ("reference", "rdo"), ("rdo", "reference")):
+        for name in order:
+            repeats[name].append(_timed(lambda: transcode(allocators[name]), dev)[0])
+    chunk_ms = {name: sorted(r)[1] / CHUNKS * 1e3 for name, r in repeats.items()}
+    prof = {name: _profile(lambda: _encode_batch_dev(upload(0), allocators[name], None)) for name in ("rdo", "reference")}
+    hand = {name: {h["name"]: h["device_ms"] for h in p["hand_kernels"]} for name, p in prof.items()}
+
+    # the CLI, on the stream's first 256 frames as a WAV
+    work = os.path.join("build", "chip_smoke_reference")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    wav, aea = os.path.join(work, "in.wav"), os.path.join(work, "cli.aea")
+    head = np.ascontiguousarray(pcm16[:, :256]).reshape(nch, -1)
+    write_wav(wav, head)
+    if cli.main(["--encode", wav, aea, "--allocator", "reference", "--quiet"]) != 0:
+        raise AssertionError("cli --allocator reference failed")
+    _, cli_units = read_aea(aea)
+    api_units = encode_pcm(head, options)
+    if cli_units.shape != api_units.shape or not np.array_equal(cli_units, api_units):
+        raise AssertionError("cli --allocator reference: units differ from encode_pcm's with the same options")
+    shutil.rmtree(work)
+    wall_s = time.perf_counter() - t0
+    print(f"reference allocator: transcode of {CHUNKS} x {CHUNK} stereo frames with allocator='reference' in "
+          f"{wall:.4f} s; word lengths per chunk against plain=True: {wl_diff} differ (units and int16 equal); "
+          f"accepted steps per frame {word_lengths.sum(dim=1).double().mean().item():.2f}; launches {launches}")
+    for name in ("reference", "rdo"):
+        p = prof[name]
+        print(f"reference allocator: allocator={name!r} in turns, repeats "
+              f"{', '.join(f'{r:.4f}' for r in repeats[name])} s = {chunk_ms[name]:.3f} ms per chunk (median); one "
+              f"chunk's encode under the profiler: device busy {p['device_ms']:.3f} ms in {p['device_launches']} "
+              f"launches, hand kernels {hand[name]}; on {smi}")
+    print(f"reference allocator: cli --allocator reference on {head.shape[1] // 512} frames x {nch} equal to "
+          f"encode_pcm's {api_units.shape[0]} units; phase 14 took {wall_s:.1f} s")
+    return {"seconds": wall, "repeat_seconds": repeats, "ms_per_chunk": chunk_ms, "launches": launches,
+            "word_lengths_differing": wl_diff, "profile_encode": prof, "cli_units": int(api_units.shape[0]),
+            "accepted_steps_per_frame": float(word_lengths.sum(dim=1).double().mean()), "wall_s": wall_s, "card": smi}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--record", default=os.path.join("build", "chip_smoke.json"),
@@ -1340,31 +1445,58 @@ def main() -> int:
     check("alloc_rdo", [(bfu, sf, bias)], bitalloc_kernels.alloc_rdo_plain, bitalloc_kernels.alloc_rdo,
           bfu.numel() * 4 + sf.numel() * 4 + out_bytes, rdo_ops, reps=50, rate=PEAK_F32_S,
           edge_cases=[(bfu, sf, b) for b in (0.7, 2.0)] + [(b, s, x) for b, s in alloc_edges for x in (0.7, 1.0, 2.0)])
+    mixed = [torch.from_numpy(testing.reference_mixed_rows(f, f)).to(dev)
+             for f in (1, bitalloc_kernels.BLOCK_FRAMES + 1, 6 * bitalloc_kernels.BLOCK_FRAMES + 5)]
     check("alloc_reference", [(sf, bias)], bitalloc_kernels.alloc_reference_plain, bitalloc_kernels.alloc_reference,
           sf.numel() * 4 + out_bytes, 0, reps=50,
-          edge_cases=[(sf, b) for b in (0.7, 2.0)] + [(s, x) for _, s in alloc_edges for x in (0.7, 1.0, 2.0)])
+          edge_cases=[(sf, b) for b in (0.7, 2.0)] + [(s, x) for s in [s for _, s in alloc_edges] + mixed
+                                                      for x in (0.7, 1.0, 2.0)])
     keys = torch.randint(0, 2**30, (frames, 780), dtype=torch.int32, device=dev)
     sort_ms = kernels.time_ms(lambda: torch.sort(keys, dim=-1), 20)[0]
     rows[-2]["sort_ms"] = rows[-1]["sort_ms"] = sort_ms
     # with no budget every head is dropped before the first pop: the error curves and hulls alone
     rows[-2]["curves_ms"] = kernels.time_ms(lambda: bitalloc_kernels.alloc_rdo(bfu, sf, bias, budget=0), 50)[0]
     print(f"alloc_rdo split: error curves and hulls {rows[-2]['curves_ms']:.4f} ms (a budget of 0), the merge about "
-          f"{rows[-2]['ms'] - rows[-2]['curves_ms']:.4f} ms; alloc_reference, the merge alone on its ranks, "
-          f"{rows[-1]['ms']:.4f} ms")
+          f"{rows[-2]['ms'] - rows[-2]['curves_ms']:.4f} ms; alloc_reference, its ranks alone, {rows[-1]['ms']:.4f} ms")
     wl = bitalloc_kernels.alloc_rdo(bfu, sf, bias)
     wl_ref = bitalloc_kernels.alloc_reference(sf, bias)
-    # what alloc_reference's time buys: a frame's merge is a serial chain of
-    # accepted steps, each raising one word length by one, in one warp per frame
+    # what alloc_reference's time buys: its first design merged every accepted
+    # step, each raising one word length by one, in one warp per frame
     steps = wl_ref.sum(dim=1).double()
-    rows[-1]["chain_per_frame"] = {"steps": float(steps.mean()), "warp_longest_chain": float(steps.max()),
-                                   "ns_per_link": rows[-1]["ms"] * 1e6 / float(steps.mean()),
-                                   "ns_per_link_longest": rows[-1]["ms"] * 1e6 / float(steps.max()), "card": smi}
+    ref_row = rows[-1]
+    ref_row["chain_per_frame"] = {"steps": float(steps.mean()), "warp_longest_chain": float(steps.max()),
+                                  "ns_per_link": ref_row["ms"] * 1e6 / float(steps.mean()),
+                                  "ns_per_link_longest": ref_row["ms"] * 1e6 / float(steps.max()), "card": smi}
+    # this design's chain, counted by its NumPy model on the same input: one
+    # reduction per bisection step, the steps of the prefix's rank, one per
+    # pop of the merge and the merge's last, empty one
+    counts: dict = {}
+    model = testing.bisect_sweep_reference(sf.cpu().numpy(), bitalloc_kernels.reference_tables(bias), RDO_BUDGET,
+                                           counts=counts)
+    if not np.array_equal(model, wl_ref.cpu().numpy()):
+        raise AssertionError("alloc_reference: the NumPy model of the kernel differs from the kernel")
+    links = counts["steps"] + 1 + counts["pops"] + 1
+    longest = int(links.argmax())
+    one = sf[longest:longest + 1]
+    one_ms = kernels.time_ms(lambda: bitalloc_kernels.alloc_reference(one, bias), 200)[0]
+    ref_row["bisect_chain_per_frame"] = {
+        "bisection_steps": float(counts["steps"].mean()), "rank_group": float(counts["group"].mean()),
+        "pops": float(counts["pops"].mean()), "pops_max": int(counts["pops"].max()), "links": float(links.mean()),
+        "links_max": int(links.max()), "ns_per_link": ref_row["ms"] * 1e6 / float(links.mean()),
+        "one_frame_ms": one_ms, "serial_ms": one_ms - empty_ms,
+        "ns_per_link_alone": (one_ms - empty_ms) * 1e6 / int(links[longest]), "card": smi}
+    chain = ref_row["bisect_chain_per_frame"]
+    print(f"alloc_reference: bisected prefix, then the merge; per frame {chain['bisection_steps']:.0f} bisection "
+          f"steps, {chain['rank_group']:.2f} steps at the prefix's rank, {chain['pops']:.3f} pops (at most "
+          f"{chain['pops_max']}): {chain['links']:.2f} links, {chain['ns_per_link']:.1f} ns each at {frames} frames; "
+          f"the frame with the most links ({chain['links_max']}) alone {one_ms:.4f} ms, {chain['serial_ms']:.4f} past "
+          f"an empty launch ({chain['ns_per_link_alone']:.1f} ns per link: the serial term); on {smi}")
     print(f"alloc_rdo: main-path inputs [{frames}, {C.NUM_BFUS}, {C.MAX_BFU_SIZE}] f32 + [{frames}, {C.NUM_BFUS}] i32; "
           f"{active.float().mean().item():.3f} of BFUs with a scale factor, {coeffs} coefficients; accepted steps per "
           f"frame {wl.float().sum(dim=1).mean().item():.2f} (reference allocator "
           f"{wl_ref.float().sum(dim=1).mean().item():.2f}); torch.sort of [{frames}, 780] int32, the plain "
           f"version's sort, alone: {sort_ms:.4f} ms (speed reference)")
-    del bfu, sf, alloc_edges, keys, wl, wl_ref
+    del bfu, sf, alloc_edges, mixed, keys, wl, wl_ref, one
 
     # 4. golden fixture, int16-exact on the card
     golden = np.load(os.path.join(fixtures, "golden_decode.npz"))["int16"]
@@ -1431,9 +1563,9 @@ def main() -> int:
     record["launches_phase5"] = launches_p5
     chain = next(r for r in rows if r["name"] == "alloc_reference")["chain_per_frame"]
     print(f"alloc_reference per frame of phase 3's main-path chunk ({frames} frames, one warp each): accepted steps "
-          f"(the sum of its word lengths) {chain['steps']:.2f} mean over warps, {chain['warp_longest_chain']:.0f} "
-          f"the largest; {chain['ns_per_link']:.1f} ns per link of the mean chain, "
-          f"{chain['ns_per_link_longest']:.1f} of the longest (phase 3's {frames}-frame time); on {smi}")
+          f"(the sum of its word lengths, the first design's chain of pops) {chain['steps']:.2f} mean over warps, "
+          f"{chain['warp_longest_chain']:.0f} the largest; phase 3's {frames}-frame time per accepted step "
+          f"{chain['ns_per_link']:.1f} ns of the mean chain, {chain['ns_per_link_longest']:.1f} of the longest; on {smi}")
 
     # what ceil(3 * (log2(a) + 21)) in f32 makes of amplitudes around every table
     # value, on the card and on the CPU, against the table comparison the port uses
@@ -1539,9 +1671,9 @@ def main() -> int:
                            "short_frames_first_chunk": n_short, "short_frames": short_total,
                            "psnr_db": stream_psnr, "upload_one_chunk_seconds": upload_s, "digest": digest}
     for row in rows:
-        path = PATHS.get(row["name"], "phase 6")
-        row["launches"] = (launches_p5 if path == "phase 5" else launches)[row["name"]]
-        row["launches_path"] = path
+        row["launches_path"] = PATHS.get(row["name"], "phase 6")
+        row["launches"] = launches[row["name"]] if row["launches_path"] == "phase 6" else None
+        row["launches_encoder_checks"] = launches_p5[row["name"]]
 
     # 7. the decode stream of golden units through decode_units, and malformed units
     decode_units(stream[: 2 * 256], 2, to_i16=True)
@@ -1616,6 +1748,13 @@ def main() -> int:
     shutil.rmtree(work)
     for row in rows:
         row["launches_contract"] = record["phase13"]["launches"][row["name"]]
+
+    # 14. the reference allocator's transcode at full width, and its CLI flag
+    record["phase14"] = reference_phase(pcm16, dev, smi)
+    for row in rows:
+        row["launches_reference"] = record["phase14"]["launches"][row["name"]]
+        if row["launches_path"] == "phase 14":
+            row["launches"] = row["launches_reference"]
 
     record["kernels"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

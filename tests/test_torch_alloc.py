@@ -6,9 +6,11 @@ as the reference's max-heap does; the plain version sorts all 780 steps
 of a frame and sweeps them (`bitalloc.rdo_candidates` /
 `reference_candidates` + `bitalloc_kernels.alloc_sweep_plain`).  Here the
 heap (`testing.merge_sweep_reference`) must give the plain version's word
-lengths bit for bit, and the plain error curve must equal a NumPy f32
-loop that sums left to right (`testing.rdo_errors_reference`), the order
-the kernel repeats.  The kernel itself is held against the plain version
+lengths bit for bit, and so must the reference allocator's kernel loop in
+NumPy (`testing.bisect_sweep_reference`: the bisected prefix, then the
+merge on packed keys, on `bitalloc_kernels.reference_tables`); the plain
+error curve must equal a NumPy f32 loop that sums left to right
+(`testing.rdo_errors_reference`), the order the kernel repeats.  The kernel itself is held against the plain version
 on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py).  Imports no
 JAX.
 """
@@ -68,6 +70,51 @@ def test_reference_merge_equals_sorted_sweep(kind, bias):
     valid = np.broadcast_to((sf.numpy() > 0)[..., None], prio.shape)
     want = bitalloc.allocate_bits(sf, bias, plain=True).numpy()
     assert np.array_equal(testing.merge_sweep_reference(prio, valid, RDO_BUDGET), want)
+
+
+@pytest.mark.parametrize("bias", BIASES)
+@pytest.mark.parametrize("kind", testing.ALLOC_KINDS)
+def test_reference_bisect_model_equals_sorted_sweep(kind, bias):
+    """The reference allocator's kernel loop (bisected prefix, the steps of
+    the prefix's rank in BFU order, the merge of the rest on packed keys)
+    gives the plain version's word lengths."""
+    _, sf = _inputs(kind)
+    want = bitalloc_kernels.alloc_reference_plain(sf, bias).numpy()
+    tables = bitalloc_kernels.reference_tables(bias)
+    counts: dict = {}
+    assert np.array_equal(testing.bisect_sweep_reference(sf.numpy(), tables, RDO_BUDGET, counts), want)
+    assert (counts["steps"] == int(np.ceil(np.log2(tables["count"].shape[0])))).all()
+    assert (counts["pops"] <= RDO_BUDGET).all() and (counts["group"] <= 52).all()
+
+
+@pytest.mark.parametrize("budget", [-3, 0, 1, 37, 5000])
+def test_reference_bisect_model_at_other_budgets(budget):
+    """Budgets where nothing fits, where one step at most fits, and where
+    every step fits (the bisection's two ends)."""
+    _, sf = _inputs("random")
+    tables = bitalloc_kernels.reference_tables(1.0)
+    want = bitalloc_kernels.alloc_reference_plain(sf, 1.0, budget).numpy()
+    assert np.array_equal(testing.bisect_sweep_reference(sf.numpy(), tables, budget), want)
+    if budget >= C.WORD_LENGTH_BITS[15] * C.SPECS_PER_BFU.sum():
+        assert (want == np.where(sf.numpy() > 0, 15, 0)).all()
+
+
+@pytest.mark.parametrize("bias", [0.0, 0.7, 1.0, 2.0, 5.0])
+def test_reference_key_fields_fit(bias):
+    """The kernel's key (1023 - rank) << 12 | (63 - b) << 6 | cost holds a
+    rank below 1024 and a cost below 64; its count table counts the steps
+    ranked below each rank."""
+    from carta1_tpu_torch.tables import RDO_CAND_COST
+
+    rank = bitalloc._rank_table(bias, CPU).numpy()
+    assert rank.max() < 1024 and RDO_CAND_COST.max() < 64 and RDO_CAND_COST.min() > 0
+    t = bitalloc_kernels.reference_tables(bias)
+    assert t["count"].dtype == np.uint8 and t["count"].shape == (rank.max() + 2, 64)
+    for r in (0, 1, rank.max() // 2, rank.max(), rank.max() + 1):
+        assert np.array_equal(t["count"][r, 1:], (rank[1:] < r).sum(axis=1)) and t["count"][r, 0] == 0
+    assert (t["count"][-1, 1:] == 15).all()
+    cum = t["specs"][:, None] * t["bits"][None, :]
+    assert np.array_equal(np.diff(cum, axis=1).reshape(-1), RDO_CAND_COST)
 
 
 @pytest.mark.parametrize("bias", BIASES)

@@ -20,6 +20,7 @@ from carta1_tpu_torch.io.aea import read_aea
 from carta1_tpu_torch.gold import fftjs, transforms
 from carta1_tpu_torch.ops import (bitalloc, bitalloc_kernels, bitpack, bitpack_kernels, fftjs_kernels, heap_kernels,
                                   imdct_kernels, qmf_kernels)
+from carta1_tpu_torch.tables import RDO_BUDGET
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -132,6 +133,34 @@ def test_allocators_on_the_card_equal_the_plain_path(card, bias):
     bfu, sf = (torch.from_numpy(a).to(card) for a in testing.alloc_inputs("random", 300, 6))
     assert torch.equal(bitalloc.allocate_bits_rdo(bfu, sf, bias), bitalloc.allocate_bits_rdo(bfu, sf, bias, plain=True))
     assert torch.equal(bitalloc.allocate_bits(sf, bias), bitalloc.allocate_bits(sf, bias, plain=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [0.7, 1.0, 2.0])
+def test_alloc_reference_kernel_at_the_full_chunk_shape(card, bias):
+    """alloc_reference at a stereo 8192-frame chunk's [16384, 52]: rows of
+    every chain length between random rows."""
+    rng = np.random.default_rng(14)
+    sf = testing.reference_mixed_rows(16384, 15)
+    sf[1::2] = np.where(rng.random((8192, 52)) < 0.1, 0, rng.integers(20, 64, (8192, 52)))
+    s = torch.from_numpy(sf).to(card)
+    before = kernels.LAUNCHES["alloc_reference"]
+    assert torch.equal(bitalloc_kernels.alloc_reference(s, bias), bitalloc_kernels.alloc_reference_plain(s, bias))
+    assert kernels.LAUNCHES["alloc_reference"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [0.7, 1.0, 2.0])
+def test_alloc_reference_kernel_blocks_mixing_long_and_short_chains(card, bias):
+    """Neighbouring frames (one warp each) whose chains differ in length:
+    silent frames beside all-63 frames, exact ties across BFUs, one BFU
+    alone, quiet frames; at the codec's budget and at budgets where nothing,
+    one step or every step fits."""
+    for frames in (1, bitalloc_kernels.BLOCK_FRAMES + 1, 6 * bitalloc_kernels.BLOCK_FRAMES + 5):
+        s = torch.from_numpy(testing.reference_mixed_rows(frames, frames)).to(card)
+        for budget in (RDO_BUDGET, -3, 0, 37, 5000):
+            got = bitalloc_kernels.alloc_reference(s, bias, budget)
+            assert torch.equal(got, bitalloc_kernels.alloc_reference_plain(s, bias, budget)), (frames, budget)
 
 
 @pytest.mark.cuda
