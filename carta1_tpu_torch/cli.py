@@ -267,7 +267,8 @@ def main(argv: list[str] | None = None) -> int:
                 options = _options(args)
                 title = args.title or os.path.splitext(os.path.basename(args.output))[0]
                 validate_title(title)
-                info = WavStreamReader(args.input).info                # header-only check
+                with WavStreamReader(args.input) as reader:            # header-only check
+                    info = reader.info
                 if info.sample_rate != C.SAMPLE_RATE and not args.quiet:
                     print(f"Warning: Input sample rate {info.sample_rate}Hz, expected {C.SAMPLE_RATE}Hz")
                 t0 = time.perf_counter()

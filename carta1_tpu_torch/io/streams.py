@@ -3,17 +3,25 @@ plus mid-stream checkpoints (the counterpart of `carta1_tpu/io/streams.py`,
 byte for byte: a file or checkpoint written by either package is read by
 the other).
 
-  * WavStreamReader  -- header parse + np.memmap of the data chunk; converts
-    only the requested frame range (16/24/32-bit, as `io.wav.read_wav`), or
-    hands 16-bit samples over raw for the conversion on the device.
+  * WavStreamReader  -- header parse, then a positioned read of only the
+    requested frame range, converted (16/24/32-bit, as `io.wav.read_wav`) or
+    handed over raw (16-bit) for the conversion on the device.
   * WavStreamWriter  -- incremental 16-bit PCM writer; sizes patched on close;
     resumable at a sample.
   * AeaStreamWriter  -- incremental sound-unit writer; frame count patched on
     close; resumable at a unit.
-  * AeaStreamReader  -- memmap over the unit table (partial trailing unit
-    dropped, readers.js:49-54).
+  * AeaStreamReader  -- positioned reads of the unit table (partial trailing
+    unit dropped, readers.js:49-54).
   * StreamCheckpoint -- atomic (tmp + rename) `.npz` of the frame offset, the
     per-channel stream state (`ch{n}__{key}`) and a JSON `__meta__`.
+
+The readers keep no mapping of the file: a memory map of the whole input
+keeps every page read so far in the process's resident set, so an
+hour-long WAV (606 MB) grew the RSS of `encode_file` by its size
+(`harness/stream_stress.py`).  Each reader holds its file open and reads a
+request at its offset into one buffer that it reuses, so the resident set
+stays at a chunk and a read costs one copy out of the page cache.  Close a
+reader (or use it in a `with`) when done with it.
 """
 
 from __future__ import annotations
@@ -39,35 +47,78 @@ from carta1_tpu_torch.io.wav import WavInfo, float_to_int16, parse_fmt, samples_
 WAV_HEADER_SIZE = 44
 
 
-class WavStreamReader:
-    """Chunked WAV reader over a memory map (no whole-file read).
+class _PositionedReader:
+    """A file held open, read at an offset into one buffer that grows to the
+    largest request: no mapping and no new array per read."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f = open(path, "rb", buffering=0)
+        self._buf = np.empty(0, np.uint8)
+
+    def _read_at(self, offset: int, nbytes: int) -> np.ndarray:
+        """Read-only uint8 [nbytes] of the file from `offset`, in the reader's
+        buffer: valid until its next read."""
+        if self._buf.size < nbytes:
+            self._buf = np.empty(nbytes, np.uint8)
+        view = memoryview(self._buf)[:nbytes]
+        self._f.seek(offset)
+        done = 0
+        while done < nbytes:
+            n = self._f.readinto(view[done:])
+            if not n:
+                raise ValueError(f"{self.path}: {done} bytes at offset {offset}, expected {nbytes}")
+            done += n
+        out = self._buf[:nbytes]
+        out.flags.writeable = False
+        return out
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class WavStreamReader(_PositionedReader):
+    """Chunked WAV reader: one positioned read per request (no whole-file
+    read, no mapping).
 
     `read_frames(start, count)` returns f32 [channels, count*512], zero-padded
     past the end of the file like the reference's frame splitter
     (processor.js:225-258); `num_frames` is at least 1."""
 
     def __init__(self, path: str):
-        self.path = path
-        size = os.path.getsize(path)
-        with open(path, "rb") as f:
-            head = f.read(12)
-            if head[:4] != b"RIFF" or head[8:12] != b"WAVE":
-                raise ValueError("Not a RIFF/WAVE file")
-            pos = 12
-            fmt = None
-            data_off = data_len = None
-            while pos + 8 <= size:
-                f.seek(pos)
-                hdr = f.read(8)
-                if len(hdr) < 8:
-                    break
-                chunk_id = hdr[:4]
-                chunk_size = int.from_bytes(hdr[4:8], "little")
-                if chunk_id == b"fmt ":
-                    fmt = struct.unpack("<HHIIHH", f.read(16))
-                elif chunk_id == b"data":
-                    data_off, data_len = pos + 8, min(chunk_size, size - pos - 8)
-                pos += 8 + chunk_size + (chunk_size & 1)
+        super().__init__(path)
+        try:
+            self._parse(os.path.getsize(path))
+        except Exception:
+            self.close()
+            raise
+
+    def _parse(self, size: int) -> None:
+        f = self._f
+        head = f.read(12)
+        if head[:4] != b"RIFF" or head[8:12] != b"WAVE":
+            raise ValueError("Not a RIFF/WAVE file")
+        pos = 12
+        fmt = None
+        data_off = data_len = None
+        while pos + 8 <= size:
+            f.seek(pos)
+            hdr = f.read(8)
+            if len(hdr) < 8:
+                break
+            chunk_id = hdr[:4]
+            chunk_size = int.from_bytes(hdr[4:8], "little")
+            if chunk_id == b"fmt ":
+                fmt = struct.unpack("<HHIIHH", f.read(16))
+            elif chunk_id == b"data":
+                data_off, data_len = pos + 8, min(chunk_size, size - pos - 8)
+            pos += 8 + chunk_size + (chunk_size & 1)
         if fmt is None or data_off is None:
             raise ValueError("Missing fmt/data chunk")
         channels, sample_rate, bit_depth = parse_fmt(fmt)
@@ -76,7 +127,7 @@ class WavStreamReader:
         n = data_len // frame_bytes
         self.info = WavInfo(channels=channels, sample_rate=sample_rate, bit_depth=bit_depth, num_samples=n)
         self.num_frames = max(1, -(-n // SAMPLES_PER_FRAME))
-        self._mm = np.memmap(path, dtype=np.uint8, mode="r", offset=data_off, shape=(n * frame_bytes,))
+        self._data_off = data_off
 
     def _span(self, start_frame: int, count: int) -> tuple[np.ndarray, int]:
         """(the raw bytes of frames [start, start + count) that the file
@@ -85,7 +136,7 @@ class WavStreamReader:
         s0 = start_frame * SAMPLES_PER_FRAME
         s1 = min((start_frame + count) * SAMPLES_PER_FRAME, self.info.num_samples)
         navail = max(s1 - s0, 0)
-        return self._mm[s0 * c * self._bps: (s0 + navail) * c * self._bps], navail
+        return self._read_at(self._data_off + s0 * c * self._bps, navail * c * self._bps), navail
 
     def read_frames_i16(self, start_frame: int, count: int) -> np.ndarray | None:
         """int16 [channels, count*512] zero-padded, or None if not 16-bit:
@@ -192,20 +243,26 @@ class AeaStreamWriter:
         self._f.close()
 
 
-class AeaStreamReader:
-    """Memmapped unit-table reader (drops trailing partial units)."""
+class AeaStreamReader(_PositionedReader):
+    """Unit-table reader, one positioned read per request (drops trailing
+    partial units)."""
 
     def __init__(self, path: str):
-        with open(path, "rb") as f:
-            self.meta = aea.parse_header(f.read(AEA_HEADER_SIZE))
+        super().__init__(path)
+        try:
+            self.meta = aea.parse_header(self._f.read(AEA_HEADER_SIZE))
+        except Exception:
+            self.close()
+            raise
         body = os.path.getsize(path) - AEA_HEADER_SIZE
         self.num_units = body // SOUND_UNIT_SIZE
-        self._mm = np.memmap(
-            path, dtype=np.uint8, mode="r", offset=AEA_HEADER_SIZE, shape=(self.num_units, SOUND_UNIT_SIZE),
-        )
 
     def read_units(self, start: int, count: int) -> np.ndarray:
-        return np.asarray(self._mm[start: start + count])
+        """Read-only uint8 [count, 212] (fewer past the end), in the reader's
+        buffer: valid until its next read."""
+        count = max(0, min(count, self.num_units - start))
+        raw = self._read_at(AEA_HEADER_SIZE + start * SOUND_UNIT_SIZE, count * SOUND_UNIT_SIZE)
+        return raw.reshape(count, SOUND_UNIT_SIZE)
 
 
 @dataclasses.dataclass

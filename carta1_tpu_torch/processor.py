@@ -26,9 +26,10 @@ the port's own parameters (`device`, `plain`, `to_i16`) come after a bare
 `*` and are keyword-only.
 
 `encode_file` and `decode_file` stream files through the same chunks with
-O(chunk) host memory: a memmapped reader feeds each chunk, and a chunk's
-result comes to the host one chunk late (`_Lag`), so the host writes chunk
-k while the card computes chunk k + 1.  With a checkpoint, the frame offset
+O(chunk) host memory: a reader that reads each chunk at its offset (and
+maps nothing) feeds each chunk, and a chunk's result comes to the host one
+chunk late (`_Lag`), so the host writes chunk k while the card computes
+chunk k + 1.  With a checkpoint, the frame offset
 and the stream state are saved atomically every few chunks (in the JAX
 package's file format), and a killed run resumes byte-identically.
 With a `mesh` (a tuple of devices, `parallel.sharding`), each chunk's
@@ -363,7 +364,7 @@ def encode_file(
     device=None,
     plain: bool = False,
 ) -> TranscodeResult:
-    """Bounded-memory streaming encode: memmapped WAV in, incremental AEA out
+    """Bounded-memory streaming encode: chunked WAV in, incremental AEA out
     (bin/cli.js:165-354), on the card unless `device="cpu"`, with `engine`
     "tpu" (the batched encoder) or "exact" (the reference's bytes).
 
@@ -388,37 +389,39 @@ def encode_file(
     mesh run is the batched engine's and does not consult `engine`."""
     _check_engine(engine)
     mesh, dev = _placement(mesh, device, plain)
-    reader = WavStreamReader(input_wav)
-    nch = reader.info.channels
-    if nch not in (1, 2):
-        raise ValueError(f"Unsupported channel count: {nch}")
-    nframes = reader.num_frames
-    options = options or EncoderOptions()
-    meta = {"input": os.path.abspath(input_wav), "chunk_frames": chunk_frames}
-    ckpt, start, state = _resume(checkpoint, meta, output_aea, dev)
-    writer = AeaStreamWriter(output_aea, title=title, channel_count=nch, resume_at_frame=start * nch if start else None)
-    lag = _Lag(dev)
+    with WavStreamReader(input_wav) as reader:
+        nch = reader.info.channels
+        if nch not in (1, 2):
+            raise ValueError(f"Unsupported channel count: {nch}")
+        nframes = reader.num_frames
+        options = options or EncoderOptions()
+        meta = {"input": os.path.abspath(input_wav), "chunk_frames": chunk_frames}
+        ckpt, start, state = _resume(checkpoint, meta, output_aea, dev)
+        writer = AeaStreamWriter(output_aea, title=title, channel_count=nch,
+                                 resume_at_frame=start * nch if start else None)
+        lag = _Lag(dev)
 
-    def chunks():
-        for cs in range(start, nframes, chunk_frames):
-            n = min(chunk_frames, nframes - cs)
+        def chunks():
+            for cs in range(start, nframes, chunk_frames):
+                n = min(chunk_frames, nframes - cs)
+                t = time.perf_counter()
+                raw = reader.read_frames_i16(cs, n)
+                if raw is None:
+                    raw = reader.read_frames(cs, n)
+                lag.phases["read_s"] += time.perf_counter() - t
+                yield cs, n, torch.from_numpy(raw.reshape(nch, n, C.SAMPLES_PER_FRAME))
+
+        def write(units: np.ndarray) -> None:                          # [C, n, 212]
             t = time.perf_counter()
-            raw = reader.read_frames_i16(cs, n)
-            if raw is None:
-                raw = reader.read_frames(cs, n)
-            lag.phases["read_s"] += time.perf_counter() - t
-            yield cs, n, torch.from_numpy(raw.reshape(nch, n, C.SAMPLES_PER_FRAME))
+            writer.append(units[0] if nch == 1 else aea.interleave_stereo(units[0], units[1]))
+            lag.phases["write_s"] += time.perf_counter() - t
 
-    def write(units: np.ndarray) -> None:                              # [C, n, 212]
-        t = time.perf_counter()
-        writer.append(units[0] if nch == 1 else aea.interleave_stereo(units[0], units[1]))
-        lag.phases["write_s"] += time.perf_counter() - t
-
-    if mesh is None:
-        dispatch = lambda x, st: _encode_batch_dev(x.to(dev), options, st, plain=plain, engine=engine)  # noqa: E731
-    else:
-        dispatch = lambda x, st: _encode_chunk_sharded(x, options, st, mesh)  # noqa: E731
-    _run_chunks(chunks(), dispatch, write, writer, state, ckpt, checkpoint_every, meta, nch, nframes, on_progress, lag)
+        if mesh is None:
+            dispatch = lambda x, st: _encode_batch_dev(x.to(dev), options, st, plain=plain, engine=engine)  # noqa: E731
+        else:
+            dispatch = lambda x, st: _encode_chunk_sharded(x, options, st, mesh)  # noqa: E731
+        _run_chunks(chunks(), dispatch, write, writer, state, ckpt, checkpoint_every, meta, nch, nframes, on_progress,
+                    lag)
     _report(lag.phases, timings)
     if ckpt is not None:
         ckpt.remove()
@@ -449,39 +452,40 @@ def decode_file(
     decoder; `engine` is checked and kept for the JAX package's signature."""
     _check_engine(engine)
     mesh, dev = _placement(mesh, device, plain)
-    reader = AeaStreamReader(input_aea)
-    nch = reader.meta.channel_count
-    if nch not in (1, 2):
-        raise ValueError(f"Unsupported channel count: {nch}")
-    total_units = reader.num_units
-    frames_per_ch = -(-total_units // nch)
-    meta = {"input": os.path.abspath(input_aea), "chunk_frames": chunk_frames}
-    ckpt, start, state = _resume(checkpoint, meta, output_wav, dev)
-    writer = WavStreamWriter(output_wav, channels=nch, resume_at_samples=start * C.SAMPLES_PER_FRAME if start else None)
-    lag = _Lag(dev)
+    with AeaStreamReader(input_aea) as reader:
+        nch = reader.meta.channel_count
+        if nch not in (1, 2):
+            raise ValueError(f"Unsupported channel count: {nch}")
+        total_units = reader.num_units
+        frames_per_ch = -(-total_units // nch)
+        meta = {"input": os.path.abspath(input_aea), "chunk_frames": chunk_frames}
+        ckpt, start, state = _resume(checkpoint, meta, output_wav, dev)
+        writer = WavStreamWriter(output_wav, channels=nch,
+                                 resume_at_samples=start * C.SAMPLES_PER_FRAME if start else None)
+        lag = _Lag(dev)
 
-    def chunks():
-        for cs in range(start, frames_per_ch, chunk_frames):
-            n = min(chunk_frames, frames_per_ch - cs)
+        def chunks():
+            for cs in range(start, frames_per_ch, chunk_frames):
+                n = min(chunk_frames, frames_per_ch - cs)
+                t = time.perf_counter()
+                raw = reader.read_units(nch * cs, nch * n)
+                if raw.shape[0] < nch * n:                             # the odd stereo tail
+                    raw = np.concatenate([raw, C.SILENT_UNIT[None]])
+                units = np.stack([raw] if nch == 1 else aea.deinterleave_stereo(raw))    # channel-major
+                lag.phases["read_s"] += time.perf_counter() - t
+                yield cs, n, torch.from_numpy(units)
+
+        def write(pcm: np.ndarray) -> None:                            # int16 [C, n, 512]
             t = time.perf_counter()
-            raw = reader.read_units(nch * cs, nch * n)
-            if raw.shape[0] < nch * n:                                 # the odd stereo tail
-                raw = np.concatenate([raw, C.SILENT_UNIT[None]])
-            units = np.stack([raw] if nch == 1 else aea.deinterleave_stereo(raw))    # a copy off the memmap
-            lag.phases["read_s"] += time.perf_counter() - t
-            yield cs, n, torch.from_numpy(units)
+            writer.append_i16(pcm.reshape(nch, -1))
+            lag.phases["write_s"] += time.perf_counter() - t
 
-    def write(pcm: np.ndarray) -> None:                                # int16 [C, n, 512]
-        t = time.perf_counter()
-        writer.append_i16(pcm.reshape(nch, -1))
-        lag.phases["write_s"] += time.perf_counter() - t
-
-    if mesh is None:
-        dispatch = lambda x, st: _decode_batch_dev(x.to(dev), st, to_i16=True, plain=plain)  # noqa: E731
-    else:
-        dispatch = lambda x, st: _decode_chunk_sharded(x, st, mesh)  # noqa: E731
-    _run_chunks(chunks(), dispatch, write, writer, state, ckpt, checkpoint_every, meta, nch, frames_per_ch,
-                on_progress, lag)
+        if mesh is None:
+            dispatch = lambda x, st: _decode_batch_dev(x.to(dev), st, to_i16=True, plain=plain)  # noqa: E731
+        else:
+            dispatch = lambda x, st: _decode_chunk_sharded(x, st, mesh)  # noqa: E731
+        _run_chunks(chunks(), dispatch, write, writer, state, ckpt, checkpoint_every, meta, nch, frames_per_ch,
+                    on_progress, lag)
     _report(lag.phases, timings)
     if ckpt is not None:
         ckpt.remove()

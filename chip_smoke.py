@@ -116,7 +116,17 @@ Phases (each raises on failure; nothing is caught):
      (median repeat) and one chunk's encode under the profiler, each in
      turns with phase 6's allocator; the CLI's --allocator reference on the
      stream's first 256 frames as a WAV, units byte-equal to encode_pcm
-     with the same options.
+     with the same options;
+ 15. the measurement harness (carta1_tpu_torch.harness) on the card, each
+     module once: bench at its defaults (its first chunk's units and int16
+     equal to encode_pcm -> decode_units of that chunk), profile_stages at
+     its defaults, quality_report at its defaults (the worst delta_db at
+     least 0: the encode contract), bench_scaling over the cards present
+     and ("cuda:0", "cuda:0"), and stream_stress in a process of its own at
+     a reduced --minutes (the cut stated in its line); launch counters
+     reset just before and read just after (every kernel but K4's
+     reference allocator must have launched); every harness JSON line goes
+     into the record.
 
 The last lines are a JSON `kernels` line, the card's name and power limit,
 and the result line.  The full record (every timing, the profile) goes to
@@ -137,6 +147,11 @@ import time
 import numpy as np
 import torch
 
+from carta1_tpu_torch.harness.common import profile as _profile
+from carta1_tpu_torch.harness.common import smi as _smi
+from carta1_tpu_torch.harness.common import sync as _sync
+from carta1_tpu_torch.harness.common import timed as _timed
+
 CHUNK = 8192
 CHUNKS = 4
 DECODE_CHUNKS = 2          # the decode-only stream of golden units
@@ -153,14 +168,7 @@ PEAK_F32_S = 33.5e12
 EXACT_KERNELS = ("alloc_heap", "fft_js_mdct_64", "fft_js_mdct_256", "fft_js_mdct_512", "fft_js_spectrum_128",
                  "fft_js_spectrum_256")
 PATHS = {"alloc_reference": "phase 14", **{k: "phase 11" for k in EXACT_KERNELS}}
-
-
-def _smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+STRESS_MINUTES = 10        # phase 15's stream_stress, cut from its 60 to keep the phase near 90 s
 
 
 def _mismatch(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
@@ -382,47 +390,6 @@ def files_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor, optio
             "in_memory_seconds": {"encode": walls["encode"], "decode": walls["decode"]},
             "timings": timings, "repeat_timings": {p: [t for _, t in r] for p, r in repeats.items()},
             "launches": launches, "encode_clips_differing_bytes": diff, "card": smi}
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-
-
-def _timed(fn, dev: torch.device):
-    _sync(dev)
-    t0 = time.perf_counter()
-    out = fn()
-    _sync(dev)
-    return time.perf_counter() - t0, out
-
-
-HAND_NAMES = ("imdct", "qmf_taps", "read_fields", "alloc_rdo", "alloc_reference", "alloc_heap", "fftjs")
-
-
-def _profile(fn) -> dict:
-    """Where fn()'s time goes on the card, by torch.profiler: device busy ms,
-    device launches, the top device rows and the hand kernels' times."""
-    cuda = torch.autograd.DeviceType.CUDA
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    # device-side rows (kernels, copies) count each device interval once;
-    # host-side rows attribute that time to the operation that launched it
-    dev_rows = sorted(([e.key, e.count, e.self_device_time_total / 1e3] for e in events
-                       if e.device_type == cuda), key=lambda r: -r[2])
-    ops = sorted(([e.key, e.count, e.self_device_time_total / 1e3] for e in events
-                  if e.device_type != cuda and e.self_device_time_total > 0), key=lambda o: -o[2])
-    host = sorted(([e.key, e.count, e.self_cpu_time_total / 1e3] for e in events if e.device_type != cuda),
-                  key=lambda o: -o[2])
-    return {"device_ms": sum(r[2] for r in dev_rows), "device_launches": sum(r[1] for r in dev_rows),
-            "host_ops_profiled": [{"name": k, "count": c, "self_cpu_ms": ms} for k, c, ms in host[:25]],
-            "hand_kernels": [{"name": k.replace("(anonymous namespace)::", "").split("(")[0], "count": c,
-                              "device_ms": ms} for k, c, ms in dev_rows if any(w in k for w in HAND_NAMES)],
-            "ops": [{"name": k, "count": c, "self_device_ms": ms} for k, c, ms in ops[:30]],
-            "device_rows": dev_rows[:30]}
 
 
 def _free_port() -> int:
@@ -1279,6 +1246,83 @@ def reference_phase(pcm16: np.ndarray, dev: torch.device, smi: str) -> dict:
             "accepted_steps_per_frame": float(word_lengths.sum(dim=1).double().mean()), "wall_s": wall_s, "card": smi}
 
 
+def harness_phase(dev: torch.device) -> dict:
+    """Phase 15: each module of carta1_tpu_torch.harness once on the card;
+    returns every JSON line they printed, the launches and the walls."""
+    from carta1_tpu_torch import decode_units, encode_pcm, kernels
+    from carta1_tpu_torch.harness import bench, bench_scaling, profile_stages, quality_report
+
+    walls = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    head, (units, pcm) = bench.run(device=dev)
+    walls["bench"] = time.perf_counter() - t0
+    # the chunk the headline timed, against the public entry points
+    pcm16 = bench.stereo_chunk(bench.CHUNK)
+    want = encode_pcm(pcm16.reshape(2, -1), chunk_frames=bench.CHUNK)
+    got = units.cpu().numpy()
+    if not (np.array_equal(got[0], want[0::2]) and np.array_equal(got[1], want[1::2])):
+        raise AssertionError("harness bench: the first chunk's units differ from encode_pcm's")
+    if _mismatch(pcm.reshape(2, -1), decode_units(want, 2, chunk_frames=bench.CHUNK, to_i16=True))[0]:
+        raise AssertionError("harness bench: the first chunk's int16 differs from decode_units'")
+    chains = head["transcode_chains"]
+    print(f"harness bench: {head['value']:.1f} channel-frames/s resident (median of {chains['repeats']}, "
+          f"{chains['fps2_spread']['min']:.1f}-{chains['fps2_spread']['max']:.1f}), pageable "
+          f"{chains['pageable']['fps']['median']:.1f}; one chunk {chains['one_chunk']['host_wall_ms']:.3f} ms, "
+          f"busy {chains['one_chunk']['device_busy_ms']:.3f} ms, idle share {chains['one_chunk']['idle_share']:.3f}; "
+          f"encode_file {head['encode_corpus_fps']:.1f}, decode_file {head['decode_corpus_fps']:.1f} channel-frames/s; "
+          f"vs_baseline {head['vs_baseline']:.3f} (baseline {head['baseline']['fps']['median']:.1f} frames/s on the "
+          f"CPU, one thread); first chunk equal to encode_pcm -> decode_units; {walls['bench']:.1f} s")
+
+    t0 = time.perf_counter()
+    stages, _ = profile_stages.run(device=dev)
+    walls["profile_stages"] = time.perf_counter() - t0
+    for key in ("stages", "decode_substages"):
+        print(f"harness profile_stages, {key} (host ms / busy ms / launches per call of {stages['frames']} frames): "
+              + "; ".join(f"{k} {r['host_ms_per_call']:.3f} / {r['device_busy_ms']:.3f} / {r['device_launches']}"
+                          for k, r in stages[key].items()))
+
+    t0 = time.perf_counter()
+    quality = quality_report.run(device=dev)
+    walls["quality_report"] = time.perf_counter() - t0
+    worst = quality[-1]["value"]
+    print("harness quality_report (gold / batched dB): " + "; ".join(
+        f"{r['signal']} {r['psnr_reference_encoder_db']:.3f} / {r['psnr_tpu_encoder_db']:.3f}" for r in quality[:-1])
+        + f"; worst delta {worst:.4f} dB")
+    if worst < 0:
+        raise AssertionError(f"harness quality_report: the batched encoder is {-worst} dB under gold on a class")
+
+    t0 = time.perf_counter()
+    scaling, _ = bench_scaling.run(device=dev)
+    walls["bench_scaling"] = time.perf_counter() - t0
+    print("harness bench_scaling (channel-frames/s, median): " + "; ".join(
+        f"{r['kind']} {r['mesh']} {r['fps2']:.1f}" for r in scaling))
+
+    # in a process of its own: its peak RSS is the whole process's
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([root] + [x for x in env.get("PYTHONPATH", "").split(os.pathsep) if x])
+    proc = subprocess.run([sys.executable, "-m", "carta1_tpu_torch.harness.stream_stress", "--minutes",
+                           str(STRESS_MINUTES)], cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"harness stream_stress: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    stress = json.loads(proc.stdout.strip().splitlines()[-1])
+    walls["stream_stress"] = time.perf_counter() - t0
+    print(f"harness stream_stress ({stress['reduced']}): {stress['wav_mb']:.1f} MB WAV, encode "
+          f"{stress['encode']['channel_frames_per_s']:.1f} and decode {stress['decode']['channel_frames_per_s']:.1f} "
+          f"channel-frames/s, peak RSS {stress['rss_mb']['peak']:.1f} MB "
+          f"({stress['rss_mb']['growth_past_warm']:.1f} MB past the warm run), card peak {stress['device_peak_allocated_mb']:.1f} MB allocated")
+
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k, v in launches.items() if v == 0 and k != "alloc_reference"]
+    if missing:
+        raise AssertionError(f"harness: launched no {missing}: {launches}")
+    print(f"harness: launches {launches}; walls {', '.join(f'{k} {v:.1f} s' for k, v in walls.items())}")
+    return {"bench": head, "profile_stages": stages, "quality_report": quality, "bench_scaling": scaling,
+            "stream_stress": stress, "launches": launches, "walls_s": walls}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--record", default=os.path.join("build", "chip_smoke.json"),
@@ -1755,6 +1799,11 @@ def main() -> int:
         row["launches_reference"] = record["phase14"]["launches"][row["name"]]
         if row["launches_path"] == "phase 14":
             row["launches"] = row["launches_reference"]
+
+    # 15. the measurement harness on the card
+    t15 = time.perf_counter()
+    record["phase15"] = harness_phase(dev)
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
     record["kernels"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

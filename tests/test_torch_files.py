@@ -188,6 +188,40 @@ def test_aea_header_writers_and_reader_byte_equal_jax(tmp_path):
     assert out["port"][2:4] == (5, 5)
 
 
+def test_stream_readers_map_nothing_of_the_file(tmp_path):
+    """The port's readers read each request at its offset: after a whole
+    file in chunks, no page of it is mapped (a mapping keeps every page read
+    in the resident set: an hour-long WAV grew `encode_file`'s RSS by its
+    size, harness/stream_stress.py), and the chunks equal the JAX package's
+    memmapped readers' on a copy of the same bytes."""
+    pcm = _stereo_i16(1.0)
+    units = np.random.default_rng(5).integers(0, 256, (173, 212)).astype(np.uint8)
+    paths = {}
+    for name in ("port", "jax"):
+        paths[name] = (str(tmp_path / f"{name}.wav"), str(tmp_path / f"{name}.aea"))
+        wav.write_wav(paths[name][0], pcm)
+        aea.write_aea(paths[name][1], units, title="t", channel_count=1)
+    readers = {name: (mod.WavStreamReader(paths[name][0]), mod.AeaStreamReader(paths[name][1]))
+               for name, mod in (("port", streams), ("jax", jax_streams))}
+    (got, got_aea), (want, want_aea) = readers["port"], readers["jax"]
+    for start in range(0, got.num_frames + 2, 16):                   # past the end too
+        assert np.array_equal(got.read_frames_i16(start, 16), want.read_frames_i16(start, 16))
+        assert np.array_equal(got.read_frames(start, 16), want.read_frames(start, 16))
+    for start in range(0, got_aea.num_units + 40, 40):
+        assert np.array_equal(got_aea.read_units(start, 40), want_aea.read_units(start, 40))
+    # the reused buffer: a large read, then smaller and overlapping ones
+    for start, count in ((0, got.num_frames + 3), (5, 1), (2, 7), (got.num_frames - 1, 4), (0, 0)):
+        assert np.array_equal(got.read_frames_i16(start, count), want.read_frames_i16(start, count))
+    for start, count in ((0, 173), (170, 9), (3, 1), (17, 50), (200, 5)):
+        assert np.array_equal(got_aea.read_units(start, count), want_aea.read_units(start, count))
+    with open("/proc/self/maps") as f:
+        maps = f.read()
+    got.close()
+    got_aea.close()
+    assert paths["jax"][0] in maps                                    # the yardstick does map its file
+    assert paths["port"][0] not in maps and paths["port"][1] not in maps
+
+
 def test_checkpoint_loads_in_either_package(tmp_path):
     state = [{"tail0": np.arange(16, dtype=np.float32), "synth_low_delay": np.ones(46, np.float32)},
              {"tail0": -np.arange(16, dtype=np.float32), "synth_low_delay": np.zeros(46, np.float32)}]
