@@ -41,4 +41,5 @@ def state_to_numpy(state: dict) -> dict[str, np.ndarray]:
 def framedata_to_numpy(fd: FrameData) -> dict[str, np.ndarray]:
     """torch FrameData -> {field: int32 NumPy array}: the keyword arguments
     of the JAX package's `FrameData`."""
-    return {k: getattr(fd, k).detach().cpu().numpy() for k in FrameData.fields()}
+    host = fd.to_numpy()
+    return {k: getattr(host, k) for k in FrameData.fields()}

@@ -31,6 +31,10 @@ class AeaMetadata:
     frame_count: int      # total across channels
     channel_count: int
 
+    @property
+    def frames_per_channel(self) -> int:
+        return self.frame_count // max(self.channel_count, 1)
+
 
 def make_header(title: str = "", frame_count: int = 0, channel_count: int = 1) -> bytes:
     header = bytearray(AEA_HEADER_SIZE)

@@ -1,10 +1,12 @@
 """Batched sound-unit pack and unpack on the device.
 
 Bit layout parity: codec/io/serialization.js:41-176 (MSB first,
-two's-complement coefficients); semantics of `carta1_tpu/ops/bitpack.py`
-`pack_frames` (the encoder's static nBfu = 52 layout) and `unpack_frames`,
-including all eight BFU_AMOUNTS and the truncated-field rule for malformed
-units (bitstream.js:55).
+two's-complement coefficients); semantics of `carta1_tpu/io/bitstream_np.py`
+`pack_frames` (each frame laid out for its own nBfu, as the host packer
+lays it out; the JAX device pack knows nBfu = 52 only) and
+`carta1_tpu/ops/bitpack.py` `unpack_frames`, including all eight
+BFU_AMOUNTS and the truncated-field rule for malformed units
+(bitstream.js:55).
 
 The unit is viewed as 106 big-endian halfwords padded to 128; a field of
 width <= 16 at bit offset r in [0, 16) of halfword h lies inside the
@@ -17,16 +19,18 @@ in [13, 107)).  Both dynamic reads go through kernel K3
 Packing runs the same windows the other way: every field (header, word
 lengths, scale factors, coefficients) is shifted into place inside the
 32-bit window anchored at its halfword, and the windows of a unit are
-summed per anchor.  Fields never share a bit, so the sum is exact in any
-order (one integer `scatter_add_`, where the JAX package selects and sums
-over [F, 1040, 74] because the TPU runtime has no fast scatter).  PyTorch
-has no uint32 arithmetic; windows are held in int64.
+summed per anchor; the offsets and widths are per frame, from its nBfu.
+Fields never share a bit, so the sum is exact in any order (one integer
+`scatter_add_`, where the JAX package selects and sums over [F, 1040, 74]
+because the TPU runtime has no fast scatter).  PyTorch has no uint32
+arithmetic; windows are held in int64.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from carta1_tpu_torch import constants as C
@@ -39,7 +43,6 @@ _NS = C.MAX_BFU_SIZE
 _NHALF = C.SOUND_UNIT_SIZE // 2               # 106 halfwords per unit
 _NHALF_PAD = bitpack_kernels.N_ANCHORS        # 128
 
-_COEFF_BASE = C.FRAME_HEADER_BITS + 10 * _NF   # 536: first coefficient bit when n_bfu == 52
 _DUMP = _NHALF                                # window column of fields anchored past the unit
 
 _SF_J = (6, 34)
@@ -52,12 +55,11 @@ def _slot_mask(device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _static_offsets(device: torch.device) -> torch.Tensor:
-    """Bit offsets of the header, the 52 word lengths and the 52 scale
-    factors of an n_bfu == 52 unit: int64 [105]."""
+def _pack_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
+    """BFU_AMOUNTS, the BFU index i, the word lengths' bit offsets 16 + 4i
+    and the scale factors' steps 6i: int64 [8], [52], [52], [52]."""
     i = torch.arange(_NF, device=device)
-    return torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
-                      C.FRAME_HEADER_BITS + 4 * i, C.FRAME_HEADER_BITS + 4 * _NF + 6 * i])
+    return (torch.from_numpy(C.BFU_AMOUNTS.astype(np.int64)).to(device), i, C.FRAME_HEADER_BITS + 4 * i, 6 * i)
 
 
 def _halfwords(units: torch.Tensor) -> torch.Tensor:
@@ -154,39 +156,48 @@ def unpack_frames(units: torch.Tensor, plain: bool = False) -> FrameData:
 
 
 def pack_frames(fd: FrameData) -> torch.Tensor:
-    """FrameData [..., F, ...] (n_bfu must be 52, the encoder invariant) ->
-    uint8 [..., F, 212]."""
+    """FrameData [..., F, ...] -> uint8 [..., F, 212], each frame laid out for
+    its own n_bfu: the header's BFU-amount index is
+    searchsorted(BFU_AMOUNTS, n_bfu) (left side, so n_bfu 0 writes index 0
+    and packs to C.SILENT_UNIT), word lengths at 16 + 4i, scale factors at
+    16 + 4 n_bfu + 6i, coefficients from 16 + 10 n_bfu, and the fields of
+    BFUs at or past n_bfu hold no bits.  Bytes equal
+    `carta1_tpu/io/bitstream_np.pack_frames`' for n_bfu in [0, 52]; other
+    values give unspecified bytes, as there, and are not checked (a check
+    would cost a host sync)."""
     lead = fd.word_lengths.shape[:-1]
     dev = fd.word_lengths.device
+    nb = fd.n_bfu.reshape(-1, 1).long()                                        # [N, 1]
     wl = fd.word_lengths.reshape(-1, _NF).long()
     sf = fd.scale_factors.reshape(-1, _NF).long()
-    q = fd.quantized.reshape(-1, _NF, _NS).long()
+    q = fd.quantized.reshape(-1, _NF * _NS).long()
     modes = fd.block_modes.reshape(-1, 3).long()
     n = wl.shape[0]
+    amounts, i, wl_off, sf_step = _pack_tables(dev)
+    active = i < nb                                                            # [N, 52]
 
-    header = (
-        ((2 - modes[:, 0]) << 14) | ((2 - modes[:, 1]) << 12) | ((3 - modes[:, 2]) << 10) | (7 << 5)
-    ) & 0xFFFF                                                        # 7 = BFU_AMOUNTS.index(52)
+    header = (((2 - modes[:, :1]) << 14) | ((2 - modes[:, 1:2]) << 12) | ((3 - modes[:, 2:]) << 10)
+              | (torch.searchsorted(amounts, nb) << 5))                          # [N, 1]
 
-    widths_bfu = word_length_bits(wl)                                           # [N, 52]
+    widths_bfu = torch.where(active, word_length_bits(wl), 0)                  # [N, 52]
     flat_w = torch.where(_slot_mask(dev), widths_bfu[:, :, None], 0).reshape(n, _NF * _NS)
-    coeff_off = _COEFF_BASE + torch.cumsum(flat_w, dim=1) - flat_w              # [N, 1040]
-    coeff_vals = (q & ((1 << widths_bfu.clamp(min=1)) - 1)[:, :, None]).reshape(n, -1)
-    coeff_vals = torch.where(flat_w > 0, coeff_vals, 0)
+    coeff_off = C.FRAME_HEADER_BITS + 10 * nb + torch.cumsum(flat_w, dim=1) - flat_w   # [N, 1040]
 
-    # every field of a unit: value, bit offset, width (a width of 0 holds no bits)
-    vals = torch.cat([header[:, None], wl & 15, sf & 63, coeff_vals], dim=1)    # [N, 1145]
-    offs = torch.cat([_static_offsets(dev).expand(n, -1), coeff_off], dim=1)
-    static_w = torch.tensor([16] + [4] * _NF + [6] * _NF, dtype=torch.int64, device=dev)
-    widths = torch.cat([static_w.expand(n, -1), flat_w], dim=1)
+    # every field of a unit: value, bit offset, width (a width of 0 holds no
+    # bits); each value keeps its low `width` bits, two's complement for the
+    # coefficients
+    offs = torch.cat([torch.zeros_like(nb), wl_off.expand(n, -1), sf_step + (C.FRAME_HEADER_BITS + 4 * nb), coeff_off],
+                     dim=1)                                                    # [N, 1145]
+    widths = torch.cat([torch.full_like(nb, 16), 4 * active, 6 * active, flat_w], dim=1)
+    vals = torch.cat([header, wl, sf, q], dim=1) & ((1 << widths) - 1)
 
     # the field inside the 32-bit window anchored at its halfword; the shift
     # is at most 31 (a width of 0 is shifted as 1 and carries the value 0)
-    anchor = offs >> 4
     aligned = vals << (32 - (offs & 15) - widths.clamp(min=1))
     # anchors past the unit are dropped (the reference stops at the buffer
-    # end, bitstream.js:24): they land in a column that is never read
-    anchor = torch.where(anchor < _DUMP, anchor, _DUMP)
+    # end, bitstream.js:24): they land in a column that is never read.  Only
+    # an n_bfu below 0 gives offsets below 0, all of fields of width 0.
+    anchor = (offs >> 4).clamp(0, _DUMP)
     win = torch.zeros((n, _DUMP + 1), dtype=torch.int64, device=dev)
     win.scatter_add_(1, anchor, aligned)
 

@@ -3,8 +3,8 @@
 Edge inputs for the tiled kernels K1 (IMDCT), K2 (QMF taps) and K4 (the
 allocators, with NaN and inf among their inputs), the plain sweep's
 candidates, NumPy and heap references of the allocators, the test signals
-of the encode-quality checks, and the amplitudes around every scale-factor
-table value.
+of the encode-quality checks, the amplitudes around every scale-factor
+table value, and frames of every BFU amount for the bitstream.
 
 One NumPy generator, used by the CPU tests (plain versions against the
 gold engine), by the card tests and by `chip_smoke.py` (kernels against
@@ -598,3 +598,36 @@ def exact_expect(path: str) -> dict:
             else:
                 out["units"][(name, float(what.split("_")[1]))] = z[key]
     return out
+
+
+# ---------------------------------------------------------------------------
+# The bitstream: frames of every BFU amount
+# ---------------------------------------------------------------------------
+def random_framedata(nframes: int, seed: int = 0, n_bfu=52):
+    """Seeded frames under `n_bfu` BFUs (an int, or int [F] for mixed
+    amounts), made as `tests/test_bitstream.py` `random_framedata` makes
+    them: random block modes, scale factors 0-63 and word lengths 0-2 on
+    the active BFUs, coefficients inside their word length's range, zeros
+    elsewhere (the draws are made for all 52 BFUs and masked).  A frame
+    whose coefficients would run past the 212-byte unit keeps word lengths
+    of at most 1, so that every frame packs and unpacks back.  Returns a
+    FrameData of int32 NumPy arrays, the form `FrameData.to_numpy` gives."""
+    from carta1_tpu_torch.constants import (
+        FRAME_BITS, FRAME_HEADER_BITS, MAX_BFU_SIZE, NUM_BFUS, SPECS_PER_BFU, WORD_LENGTH_BITS)
+    from carta1_tpu_torch.framedata import FrameData
+
+    rng = np.random.default_rng(seed)
+    nb = np.broadcast_to(np.asarray(n_bfu, np.int32), (nframes,)).copy()
+    active = np.arange(NUM_BFUS)[None, :] < nb[:, None]
+    modes = rng.choice([0, 2], size=(nframes, 3))
+    modes[:, 2] = np.where(rng.random(nframes) < 0.5, 3, 0)
+    sf = np.where(active, rng.integers(0, 64, (nframes, NUM_BFUS)), 0)
+    wl = np.where(active, rng.integers(0, 3, (nframes, NUM_BFUS)), 0)
+    over = (WORD_LENGTH_BITS[wl] * SPECS_PER_BFU).sum(axis=1) > FRAME_BITS - FRAME_HEADER_BITS - 10 * nb
+    wl = np.where(over[:, None], np.minimum(wl, 1), wl)
+    bits = WORD_LENGTH_BITS[wl]
+    lim = np.maximum((1 << np.maximum(bits - 1, 0)) - 1, 0)[..., None]
+    q = np.clip(rng.integers(-32768, 32768, (nframes, NUM_BFUS, MAX_BFU_SIZE)), -lim, lim)
+    slot = np.arange(MAX_BFU_SIZE)[None, None, :] < SPECS_PER_BFU[None, :, None]
+    q = np.where(slot & (bits[..., None] > 0), q, 0)
+    return FrameData(*(x.astype(np.int32) for x in (nb, modes, sf, wl, q)))

@@ -126,7 +126,17 @@ Phases (each raises on failure; nothing is caught):
      a reduced --minutes (the cut stated in its line); launch counters
      reset just before and read just after (every kernel but K4's
      reference allocator must have launched); every harness JSON line goes
-     into the record.
+     into the record;
+ 16. the device pack at every BFU amount: seeded frames
+     (testing.random_framedata) under n_bfu 0 and each of BFU_AMOUNTS,
+     under mixed amounts, and stereo [2, 8192] chunks at n_bfu 52 and at
+     mixed amounts; pack_frames on the card byte-equal to the same call on
+     the CPU, unpack_frames (K3) gives the fields back and re-packing the
+     bytes (launch counters reset just before and read just after: K3 must
+     have launched); pack_frames(FrameData.zeros(1)) equals C.SILENT_UNIT;
+     FrameData.concatenate of parts on the card equals the whole and packs
+     to the parts' units; the pack's time at n_bfu 52 and at mixed amounts
+     on a stereo chunk (CUDA events, and one call under the profiler).
 
 The last lines are a JSON `kernels` line, the card's name and power limit,
 and the result line.  The full record (every timing, the profile) goes to
@@ -168,6 +178,7 @@ PEAK_F32_S = 33.5e12
 EXACT_KERNELS = ("alloc_heap", "fft_js_mdct_64", "fft_js_mdct_256", "fft_js_mdct_512", "fft_js_spectrum_128",
                  "fft_js_spectrum_256")
 PATHS = {"alloc_reference": "phase 14", **{k: "phase 11" for k in EXACT_KERNELS}}
+PACK_FRAMES = 2048         # frames of each BFU amount in phase 16's checks
 STRESS_MINUTES = 10        # phase 15's stream_stress, cut from its 60 to keep the phase near 90 s
 
 
@@ -1323,6 +1334,85 @@ def harness_phase(dev: torch.device) -> dict:
             "stream_stress": stress, "launches": launches, "walls_s": walls}
 
 
+def pack_phase(dev: torch.device, smi: str) -> dict:
+    """Phase 16: pack_frames at every BFU amount on the card, against the
+    same call on the CPU and through K3's unpack and back; the silent frame,
+    FrameData.concatenate, and the pack's time on a stereo chunk."""
+    from carta1_tpu_torch import FrameData, convert, kernels, testing
+    from carta1_tpu_torch import constants as C
+    from carta1_tpu_torch.ops import bitpack
+
+    t_phase = time.perf_counter()
+    amounts = [0, *C.BFU_AMOUNTS.tolist()]
+    rng = np.random.default_rng(16)
+
+    def stereo(n_bfu, seed: int) -> FrameData:
+        """[2, CHUNK] frames under n_bfu: an int, or int [2, CHUNK]."""
+        n_bfu = np.broadcast_to(n_bfu, (2, CHUNK))
+        rows = [testing.random_framedata(CHUNK, seed + ch, n_bfu[ch]) for ch in range(2)]
+        return FrameData(*(np.stack([getattr(r, k) for r in rows]) for k in FrameData.fields()))
+
+    cases = {f"n_bfu {a}": testing.random_framedata(PACK_FRAMES, 1600 + a, a) for a in amounts}
+    cases["mixed"] = testing.random_framedata(PACK_FRAMES, 1660, rng.choice(amounts, PACK_FRAMES))
+    cases["stereo, n_bfu 52"] = stereo(52, 1670)
+    cases["stereo, mixed"] = stereo(rng.choice(amounts, (2, CHUNK)), 1680)
+    on_card = {name: convert.framedata_from_numpy(host, dev) for name, host in cases.items()}
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    packed = {}
+    for name, host in cases.items():
+        units = bitpack.pack_frames(on_card[name])
+        if not torch.equal(units.cpu(), bitpack.pack_frames(convert.framedata_from_numpy(host, "cpu"))):
+            raise AssertionError(f"pack ({name}): the card's units differ from the CPU's")
+        back = bitpack.unpack_frames(units)
+        # the header names an amount: n_bfu 0 reads back as 20, with no bits set
+        named = C.BFU_AMOUNTS[np.searchsorted(C.BFU_AMOUNTS, host.n_bfu)]
+        for k in FrameData.fields():
+            if not np.array_equal(getattr(back, k).cpu().numpy(), named if k == "n_bfu" else getattr(host, k)):
+                raise AssertionError(f"pack ({name}): unpack_frames gives other {k}")
+        if not torch.equal(bitpack.pack_frames(back), units):
+            raise AssertionError(f"pack ({name}): re-packing the unpacked fields gives other bytes")
+        packed[name] = units
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if not launches["read_fields"]:
+        raise AssertionError(f"pack phase launched no read_fields: {launches}")
+
+    silent = bitpack.pack_frames(FrameData.zeros(1, device=dev)).cpu().numpy()
+    if not np.array_equal(silent[0], C.SILENT_UNIT):
+        raise AssertionError(f"pack of FrameData.zeros(1): {silent[0, :4]}..., not the silent unit")
+
+    # the amounts joined (mono), and the stereo chunk cut and joined on its frame axis
+    mono = FrameData.concatenate([on_card[f"n_bfu {a}"] for a in amounts])
+    if not torch.equal(bitpack.pack_frames(mono), torch.cat([packed[f"n_bfu {a}"] for a in amounts])):
+        raise AssertionError("pack of FrameData.concatenate of every amount differs from the amounts' units")
+    whole = on_card["stereo, mixed"]
+    parts = [whole[:, a:b] for a, b in ((0, 1000), (1000, 1000), (1000, 5000), (5000, CHUNK))]
+    joined = FrameData.concatenate(parts)
+    if not all(torch.equal(getattr(joined, k), getattr(whole, k)) for k in FrameData.fields()):
+        raise AssertionError("FrameData.concatenate of a stereo chunk's parts differs from the whole")
+    if not torch.equal(bitpack.pack_frames(joined), torch.cat([bitpack.pack_frames(p) for p in parts], dim=1)):
+        raise AssertionError("pack of the joined stereo chunk differs from its parts' units")
+
+    times = {}
+    for name in ("stereo, n_bfu 52", "stereo, mixed"):
+        fd = on_card[name]
+        ms, host_ms = kernels.time_ms(lambda fd=fd: bitpack.pack_frames(fd), 10)
+        prof = _profile(lambda fd=fd: bitpack.pack_frames(fd))
+        times[name] = {"ms": ms, "host_ms": host_ms, "busy_ms": prof["device_ms"],
+                       "launches": prof["device_launches"]}
+    wall = time.perf_counter() - t_phase
+    print(f"pack: n_bfu 0, {', '.join(map(str, C.BFU_AMOUNTS))}, mixed ({PACK_FRAMES} frames each) and stereo "
+          f"[2, {CHUNK}] at 52 and mixed: units equal to the CPU's, unpack (K3) gives the fields back, re-pack the "
+          f"bytes; launches {launches}; FrameData.zeros(1) packs to the silent unit; concatenate equals the whole")
+    print("pack of a stereo chunk (CUDA events, mean of 10 behind a spinning kernel; one call profiled): "
+          + "; ".join(f"{n}: {t['ms']:.4f} ms (host {t['host_ms']:.4f}), busy {t['busy_ms']:.4f} ms in "
+                      f"{t['launches']} launches" for n, t in times.items())
+          + f"; on {smi}; phase 16 took {wall:.1f} s")
+    return {"launches": launches, "times": times, "wall_s": wall, "card": smi}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--record", default=os.path.join("build", "chip_smoke.json"),
@@ -1804,6 +1894,11 @@ def main() -> int:
     t15 = time.perf_counter()
     record["phase15"] = harness_phase(dev)
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+    # 16. the device pack at every BFU amount
+    record["phase16"] = pack_phase(dev, smi)
+    for row in rows:
+        row["launches_pack"] = record["phase16"]["launches"][row["name"]]
 
     record["kernels"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

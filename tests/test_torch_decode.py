@@ -243,6 +243,21 @@ def test_stereo_decode_units_odd_count_matches_gold():
     assert _bits_equal(got[0].numpy(), want[0]) and _bits_equal(got[1].numpy(), want[1])
 
 
+@pytest.mark.parametrize("n_bfu", [*C.BFU_AMOUNTS.tolist(), "mixed"])
+def test_decode_units_of_every_bfu_amount_matches_gold(n_bfu):
+    """Units the JAX host packer wrote under each BFU amount (a Sony deck's
+    or atracdenc's), random block modes, decode f32-bitwise to gold."""
+    if n_bfu == "mixed":
+        n_bfu = np.random.default_rng(81).choice([0, *C.BFU_AMOUNTS], 9)
+        fd = testing.random_framedata(9, 81, n_bfu)
+    else:
+        fd = testing.random_framedata(7, 80 + n_bfu, n_bfu)
+    units = pack_frames(JaxFrameData(*(getattr(fd, k) for k in JaxFrameData.fields())))
+    want, _ = gold_decode_frames(unpack_frames(units))
+    got = decode_units(units, 1, device=CPU)
+    assert _bits_equal(got.numpy().reshape(-1), want.reshape(-1))
+
+
 def test_decode_units_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")

@@ -2,8 +2,9 @@
 
 `ops/bitpack.pack_frames` has no kernel of its own (one integer
 `scatter_add_`); its bytes must equal `io/bitstream_np.pack_frames` (the
-authoritative NumPy packer), `pack_frames_fast` (the native tier) and the
-JAX in-graph pack, and the port's own unpack must give the fields back.
+authoritative NumPy packer) for every BFU amount, `pack_frames_fast` (the
+native tier) and the JAX in-graph pack (n_bfu 52, the encoder's), and the
+port's own unpack must give the fields back.
 """
 
 import jax
@@ -19,7 +20,8 @@ from carta1_tpu.io.bitstream_np import pack_frames_fast
 from carta1_tpu.ops import bitpack as jax_bitpack
 
 from carta1_tpu_torch import constants as C
-from carta1_tpu_torch import convert
+from carta1_tpu_torch import convert, testing
+from carta1_tpu_torch.framedata import FrameData
 from carta1_tpu_torch.io import aea
 from carta1_tpu_torch.ops import bitpack
 
@@ -96,6 +98,55 @@ def test_pack_keeps_channel_axis():
     got = bitpack.pack_frames(both).numpy()
     assert got.shape == (2, 6, C.SOUND_UNIT_SIZE)
     assert np.array_equal(got[0], np_pack(a)) and np.array_equal(got[1], np_pack(b))
+
+
+AMOUNTS = [0, *C.BFU_AMOUNTS.tolist()]
+
+
+def _amount_fd(n_bfu, nframes: int = 7) -> FrameData:
+    """Seeded frames (NumPy fields) under one BFU amount, or under amounts
+    drawn per frame from AMOUNTS ("mixed")."""
+    if n_bfu == "mixed":
+        return testing.random_framedata(nframes, 77, np.random.default_rng(77).choice(AMOUNTS, nframes))
+    return testing.random_framedata(nframes, 60 + n_bfu, n_bfu)
+
+
+def _jax_fd(fd: FrameData) -> JaxFrameData:
+    return JaxFrameData(*(getattr(fd, k) for k in JaxFrameData.fields()))
+
+
+@pytest.mark.parametrize("n_bfu", AMOUNTS + ["mixed"])
+def test_pack_every_bfu_amount_matches_host_pack(n_bfu):
+    """Each frame laid out for its own n_bfu: the header's amount index,
+    the scale factors at 16 + 4 n_bfu, the coefficients from 16 + 10 n_bfu."""
+    fd = _amount_fd(n_bfu, 27 if n_bfu == "mixed" else 7)
+    got = _pack(fd)
+    assert np.array_equal(got, np_pack(_jax_fd(fd)))
+
+
+@pytest.mark.parametrize("n_bfu", AMOUNTS + ["mixed"])
+def test_repack_of_host_units_of_every_bfu_amount(n_bfu):
+    """Units the host packer wrote (a Sony deck's or atracdenc's amounts)
+    come back byte for byte through the port's unpack and pack."""
+    units = np_pack(_jax_fd(_amount_fd(n_bfu, 27 if n_bfu == "mixed" else 7)))
+    back = bitpack.pack_frames(bitpack.unpack_frames(torch.from_numpy(units)))
+    assert np.array_equal(back.numpy(), units)
+
+
+def test_pack_of_mixed_amounts_keeps_channel_axis():
+    a, b = _amount_fd("mixed", 9), testing.random_framedata(9, 8, np.random.default_rng(8).choice(AMOUNTS, 9))
+    stacked = FrameData(*(np.stack([getattr(a, k), getattr(b, k)]) for k in FrameData.fields()))
+    both = convert.framedata_from_numpy(stacked, "cpu")
+    got = bitpack.pack_frames(both).numpy()
+    assert got.shape == (2, 9, C.SOUND_UNIT_SIZE)
+    assert np.array_equal(got[0], np_pack(_jax_fd(a))) and np.array_equal(got[1], np_pack(_jax_fd(b)))
+
+
+def test_pack_of_a_silent_frame_is_the_silent_unit():
+    """n_bfu 0 writes BFU-amount index 0: the unit the processors pad with."""
+    got = bitpack.pack_frames(FrameData.zeros(1, device="cpu")).numpy()
+    assert np.array_equal(got[0], C.SILENT_UNIT)
+    assert np.array_equal(got, np_pack(JaxFrameData.zeros(1)))
 
 
 def test_interleave_stereo_matches_jax_package():

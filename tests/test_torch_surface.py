@@ -14,8 +14,14 @@ each function and class, less those in `DELIBERATE`, are a prefix, in
 order, of the counterpart's (an entry `name[order]` records a different
 positional contract).  Return annotations agree, `jax.Array` and
 `jnp.ndarray` reading as `torch.Tensor`, except where `RETURNS` records
-the departure and why.  One case per module of the JAX package for each
-of the three; no JAX function is compiled.
+the departure and why.
+
+Each public class's members are held too: every public method, property,
+static and class method, and `__getitem__` / `__len__` / `__iter__` where
+the JAX class defines them, must exist on the counterpart class and take
+the JAX keywords, or stand in `DELIBERATE` as `("module", "Class.member")`.
+One case per module of the JAX package for each of the four; no JAX
+function is compiled.
 """
 
 from __future__ import annotations
@@ -48,13 +54,15 @@ MOVED_MODULES = {
 }
 
 # what the port leaves out on purpose: (JAX module, "*" for the whole module,
-# "name", or "name(param)") -> why
+# "name", "name(param)" or "Class.member") -> why
 DELIBERATE = {
     ("jaxtools", "*"): "the JAX runtime's relay workarounds (hoisted jit, fetch spools); a GPU needs none",
     ("jaxsetup", "*"): "JAX platform and compilation-cache setup",
     ("ops.df", "*"): "f64 emulated by f32 error-free expansions; the H100 has IEEE f64",
-    ("native", "*"): "OpenMP host packers with a NumPy fallback; the port packs and unpacks on the card",
-    ("io.bitstream_np", "*"): "host bit packers; the port packs and unpacks on the card (ops/bitpack.py)",
+    ("native", "*"): "OpenMP host packers with a NumPy fallback; the port packs and unpacks on the card, "
+    "byte-equal for every n_bfu (tests/test_torch_pack.py::test_pack_every_bfu_amount_matches_host_pack)",
+    ("io.bitstream_np", "*"): "host bit packers; the port packs and unpacks on the card (ops/bitpack.py), "
+    "byte-equal for every n_bfu (tests/test_torch_pack.py::test_pack_every_bfu_amount_matches_host_pack)",
     ("pipeline.decoder", "decode_step(short_cap)"): "a static capacity of short frames for one XLA program",
     ("pipeline.decoder", "decode_step(assume_fits)"): "skips the static-capacity overflow fallback",
     ("pipeline.decoder", "auto_short_cap"): "picks the static short-frame capacity of an XLA program",
@@ -138,6 +146,31 @@ def jax_surface(path: pathlib.Path) -> dict[str, tuple[str, list[str], list[str]
     return out
 
 
+_DUNDERS = ("__getitem__", "__len__", "__iter__")
+
+
+def jax_members(path: pathlib.Path) -> dict[str, dict[str, tuple[str, list[str]]]]:
+    """class -> {member: (kind, parameter names without self or cls)} of a
+    module's public classes: each public method, property, static and class
+    method, and `_DUNDERS` where the class defines them."""
+    out: dict[str, dict[str, tuple[str, list[str]]]] = {}
+    for node in ast.parse(path.read_text()).body:
+        if not isinstance(node, ast.ClassDef) or node.name.startswith("_"):
+            continue
+        members = {}
+        for fn in node.body:
+            if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            if fn.name.startswith("_") and fn.name not in _DUNDERS:
+                continue
+            decorators = {ast.unparse(d) for d in fn.decorator_list}
+            kind = next((k for k in ("property", "staticmethod", "classmethod") if k in decorators), "method")
+            params = _params(fn)[0]
+            members[fn.name] = (kind, params if kind == "staticmethod" else params[1:])
+        out[node.name] = members
+    return out
+
+
 def _module_name(path: pathlib.Path) -> str:
     parts = path.relative_to(JAX_ROOT).with_suffix("").parts
     return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
@@ -198,10 +231,43 @@ def test_port_has_every_public_name_of_the_jax_module(module):
     assert not faults, f"carta1_tpu.{module}: " + "; ".join(faults)
 
 
+def _member_faults(module: str) -> list[str]:
+    """What the counterpart classes of the JAX module's public classes lack:
+    a member, or a keyword of one (less the DELIBERATE members)."""
+    faults = []
+    for cls, members in jax_members(_jax_path(module)).items():
+        port_cls = _counterpart(module, cls)
+        if (module, cls) in DELIBERATE or not inspect.isclass(port_cls):
+            continue                  # left out, or a missing name, which the keyword case reports
+        for name, (kind, params) in members.items():
+            if (module, f"{cls}.{name}") in DELIBERATE:
+                continue
+            obj = inspect.getattr_static(port_cls, name, None)
+            if obj is None:
+                faults.append(f"{kind} {cls}.{name}: no counterpart")
+            elif kind == "property":
+                if not isinstance(obj, property):
+                    faults.append(f"property {cls}.{name}: the port's is no property")
+            elif left := _accepts(getattr(port_cls, name), params):
+                faults.append(f"{kind} {cls}.{name}: takes no keyword {left}")
+    return faults
+
+
+@pytest.mark.parametrize("module", JAX_MODULES, ids=lambda m: m or "__init__")
+def test_port_classes_have_every_public_member_of_the_jax_classes(module):
+    """A method, property or static method a user of a `carta1_tpu` class
+    calls (`FrameData.zeros`, `AeaMetadata.frames_per_channel`, ...) exists
+    on the port's class and takes the same keywords."""
+    if (module, "*") in DELIBERATE:
+        return
+    faults = _member_faults(module)
+    assert not faults, f"carta1_tpu.{module}: " + "; ".join(faults)
+
+
 def test_deliberate_entries_have_no_counterpart():
-    """Each omission is still one: the module, the name or the keyword is
-    absent from the port, and every entry names something the JAX package
-    has."""
+    """Each omission is still one: the module, the name, the class member
+    or the keyword is absent from the port, and every entry names something
+    the JAX package has."""
     for (module, what), reason in DELIBERATE.items():
         assert reason, (module, what)
         assert module in JAX_MODULES, f"DELIBERATE names carta1_tpu.{module}, which does not exist"
@@ -214,6 +280,14 @@ def test_deliberate_entries_have_no_counterpart():
             assert name in surface and _counterpart(module, name) is not None, f"{module}.{what}: no such pair"
             continue
         name, _, param = what.partition("(")
+        if "." in name:                              # a class member
+            cls, member = name.split(".", 1)
+            assert member in jax_members(_jax_path(module)).get(cls, {}), \
+                f"DELIBERATE names {module}.{name}, which the JAX package does not have"
+            port_cls = _counterpart(module, cls)
+            assert inspect.isclass(port_cls) and inspect.getattr_static(port_cls, member, None) is None, \
+                f"{module}.{name}: the port has it now"
+            continue
         assert name in surface, f"DELIBERATE names {module}.{name}, which the JAX package does not have"
         obj = _counterpart(module, name)
         if param:
