@@ -1,0 +1,13 @@
+"""Device milliseconds per encode call in the QMF analysis tree and the high
+band's delay (f32 `conv1d` in the batched engine, the f64 taps in the exact
+one): the program's span `carta1.encode.qmf`, averaged over the traced calls
+(`benchmark/spans.py`). Layer: encoder analysis. Moves encode_fps.
+
+A device ms is the time between the span's entry and exit events on the
+step's stream: its kernels, plus any wait for the host inside it. A host ms
+under the profiler includes the profiler's own cost per operation, so it
+compares only with other traced runs."""
+
+from benchmark import spans
+
+read = spans.device_ms("encode", "carta1.encode.qmf")

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from carta1_tpu_torch import constants as C
+from carta1_tpu_torch import profiling
 from carta1_tpu_torch.framedata import FrameData
 from carta1_tpu_torch.gold.coding import allocate_bits_sf, find_scale_factors, quantize_js
 from carta1_tpu_torch.gold.fftjs import magnitude_spectrum_js
@@ -135,11 +136,17 @@ def exact_analysis(pcm: torch.Tensor, state: dict, options: EncoderOptions, plai
     slots f32 [..., F, 52, 20], scale factors int32 [..., F, 52], block
     modes int32 [..., F, 3], the three bands' transient scores f64
     [..., F], new state)."""
-    bands, new_state = analysis_bands(pcm, state)
-    modes, scores, spec_state = _block_modes(bands, options.band_thresholds, state, plain)
-    coeffs, tails = _mdct_bands(bands, modes, state, plain)
-    bfu = group_bfus(coeffs, modes)
-    return bfu, find_scale_factors(bfu), modes, scores, {**new_state, **spec_state, **tails}
+    with profiling.span("carta1.encode.analysis"):
+        with profiling.span("carta1.encode.qmf"):
+            bands, new_state = analysis_bands(pcm, state)
+        with profiling.span("carta1.encode.transient"):
+            modes, scores, spec_state = _block_modes(bands, options.band_thresholds, state, plain)
+        with profiling.span("carta1.encode.mdct"):
+            coeffs, tails = _mdct_bands(bands, modes, state, plain)
+        with profiling.span("carta1.encode.scale_factors"):
+            bfu = group_bfus(coeffs, modes)
+            sf = find_scale_factors(bfu)
+    return bfu, sf, modes, scores, {**new_state, **spec_state, **tails}
 
 
 def exact_encode_step(pcm: torch.Tensor, state: dict, options: EncoderOptions,
@@ -147,16 +154,19 @@ def exact_encode_step(pcm: torch.Tensor, state: dict, options: EncoderOptions,
     """Exact batched encode of f32 [..., F, 512] (F > 0) -> (FrameData, state).
     `plain=True` runs K5's and K6's plain versions on any device."""
     bfu, sf, modes, _, new_state = exact_analysis(pcm, state, options, plain)
-    wl = allocate_bits_sf(sf, options.allocation_bias, plain)
+    with profiling.span("carta1.encode.allocate"):
+        wl = allocate_bits_sf(sf, options.allocation_bias, plain)
     lead = sf.shape[:-1]
-    fd = FrameData(
-        n_bfu=torch.full(lead, C.NUM_BFUS, dtype=torch.int32, device=pcm.device),
-        block_modes=modes,
-        scale_factors=sf,
-        word_lengths=wl,
-        quantized=quantize_js(bfu, sf, wl),
-    )
-    return fd, {k: new_state[k].clone() for k in state}          # no view keeps a chunk's tensors alive
+    with profiling.span("carta1.encode.quantize"):
+        fd = FrameData(
+            n_bfu=torch.full(lead, C.NUM_BFUS, dtype=torch.int32, device=pcm.device),
+            block_modes=modes,
+            scale_factors=sf,
+            word_lengths=wl,
+            quantized=quantize_js(bfu, sf, wl),
+        )
+        new_state = {k: new_state[k].clone() for k in state}     # no view keeps a chunk's tensors alive
+    return fd, new_state
 
 
 def gold_encode_frames(pcm, options: EncoderOptions | None = None, state: dict | None = None, device=None,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from carta1_tpu_torch import constants as C
+from carta1_tpu_torch import profiling
 from carta1_tpu_torch.ops.coding import quant_range
 from carta1_tpu_torch.ops.common import halo_prefix, shift_frames
 from carta1_tpu_torch.ops.imdct_kernels import imdct_mid, imdct_mid_plain
@@ -147,12 +148,16 @@ def _short_path(bands: list, is_short: torch.Tensor, inv_bufs: list, plain: bool
 
     Short frames are chosen by index, so a chunk pays the size-64
     transforms only for the frames that use them.  `torch.nonzero` and the
-    per-band counts sync the host here, once per call."""
+    per-band counts sync the host here, once per call: the span
+    `carta1.decode.short_index`, which counts the short band-frames."""
     flags = is_short.reshape(-1, 3).T                                # [3, N]
-    counts = flags.sum(dim=1).tolist()
-    if sum(counts) == 0:
-        return
-    rows = torch.split(torch.nonzero(flags)[:, 1], counts)          # band-major
+    with profiling.span("carta1.decode.short_index") as sp:
+        counts = flags.sum(dim=1).tolist()
+        short = sum(counts)
+        sp.add("short_band_frames", short)
+        if short == 0:
+            return
+        rows = torch.split(torch.nonzero(flags)[:, 1], counts)      # band-major
     nb = C.MDCT_NUM_SHORT_BLOCKS
     blocks = []
     for b in range(3):

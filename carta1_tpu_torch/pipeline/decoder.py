@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from carta1_tpu_torch import constants as C
+from carta1_tpu_torch import profiling
 from carta1_tpu_torch.device import resolve_device
 from carta1_tpu_torch.framedata import FrameData
 from carta1_tpu_torch.ops import exact_decode as X
@@ -44,16 +45,19 @@ def decode_step(fd: FrameData, state: dict, plain: bool = False) -> tuple[torch.
     """Bit-exact batched decode: FrameData -> (pcm [..., F, 512], state).
 
     `plain=True` runs the kernels' plain PyTorch versions on any device."""
-    deq = X.dequantize_exact(fd.quantized, fd.scale_factors, fd.word_lengths)
-    coeffs = scatter_bfus(deq, fd.block_modes, fd.n_bfu)              # [..., F, 512]
+    with profiling.span("carta1.decode.dequantize"):
+        deq = X.dequantize_exact(fd.quantized, fd.scale_factors, fd.word_lengths)
+        coeffs = scatter_bfus(deq, fd.block_modes, fd.n_bfu)          # [..., F, 512]
 
-    outs, new_tails = X.imdct_bands_exact(
-        coeffs, fd.block_modes, (state["tail0"], state["tail1"], state["tail2"]), plain=plain
-    )
+    with profiling.span("carta1.decode.imdct"):
+        outs, new_tails = X.imdct_bands_exact(
+            coeffs, fd.block_modes, (state["tail0"], state["tail1"], state["tail2"]), plain=plain
+        )
 
-    high_delayed, high_d = delay_stream(outs[2], state["synth_high_delay"])
-    stage2, mid_d = X.qmf_synthesis_exact(outs[0], outs[1], state["synth_mid_delay"], plain=plain)
-    pcm, low_d = X.qmf_synthesis_exact(stage2, high_delayed, state["synth_low_delay"], plain=plain)
+    with profiling.span("carta1.decode.synthesis"):
+        high_delayed, high_d = delay_stream(outs[2], state["synth_high_delay"])
+        stage2, mid_d = X.qmf_synthesis_exact(outs[0], outs[1], state["synth_mid_delay"], plain=plain)
+        pcm, low_d = X.qmf_synthesis_exact(stage2, high_delayed, state["synth_low_delay"], plain=plain)
 
     return pcm, _state(new_tails, low_d, mid_d, high_d)
 

@@ -55,24 +55,30 @@ def analysis_step(
     """The encoder up to the allocator: pcm f32 [..., F, 512] -> (BFU slots
     f32 [..., F, 52, 20], scale factors int32 [..., F, 52], block modes
     int32 [..., F, 3], new state)."""
-    # QMF analysis tree (encoder.js:57-96)
-    low1, high1, low_d = qmf_analysis(pcm, state["qmf_low_delay"])
-    low2, mid2, mid_d = qmf_analysis(low1, state["qmf_mid_delay"])
-    band2, high_d = delay_stream(high1, state["qmf_high_delay"])
-    bands = [low2, mid2, band2]
+    with profiling.span("carta1.encode.analysis"):
+        # QMF analysis tree (encoder.js:57-96)
+        with profiling.span("carta1.encode.qmf"):
+            low1, high1, low_d = qmf_analysis(pcm, state["qmf_low_delay"])
+            low2, mid2, mid_d = qmf_analysis(low1, state["qmf_mid_delay"])
+            band2, high_d = delay_stream(high1, state["qmf_high_delay"])
+            bands = [low2, mid2, band2]
 
-    # transient detection -> block modes (encoder.js:111-145)
-    modes, new_specs = block_modes(bands, [state[f"prev_spectrum{b}"] for b in range(3)], thresholds)
+        # transient detection -> block modes (encoder.js:111-145)
+        with profiling.span("carta1.encode.transient"):
+            modes, new_specs = block_modes(bands, [state[f"prev_spectrum{b}"] for b in range(3)], thresholds)
 
-    # windowed MDCT per band (encoder.js:163-341)
-    parts, new_tails = [], []
-    for b in range(3):
-        cf, tail = encoder_mdct_band(bands[b], b, modes[..., b], state[f"band_tail{b}"])
-        parts.append(cf)
-        new_tails.append(tail)
-    coeffs = torch.cat(parts, dim=-1)                                 # [..., F, 512]
+        # windowed MDCT per band (encoder.js:163-341)
+        with profiling.span("carta1.encode.mdct"):
+            parts, new_tails = [], []
+            for b in range(3):
+                cf, tail = encoder_mdct_band(bands[b], b, modes[..., b], state[f"band_tail{b}"])
+                parts.append(cf)
+                new_tails.append(tail)
+            coeffs = torch.cat(parts, dim=-1)                         # [..., F, 512]
 
-    bfu = group_bfus(coeffs, modes)
+        with profiling.span("carta1.encode.scale_factors"):
+            bfu = group_bfus(coeffs, modes)
+            sf = find_scale_factors(bfu)
     new_state = {
         "qmf_low_delay": low_d,
         "qmf_mid_delay": mid_d,
@@ -84,7 +90,7 @@ def analysis_step(
         "band_tail1": new_tails[1],
         "band_tail2": new_tails[2],
     }
-    return bfu, find_scale_factors(bfu), modes, new_state
+    return bfu, sf, modes, new_state
 
 
 def encode_step(
@@ -105,20 +111,23 @@ def encode_step(
 
     # allocation and quantization (encoder.js:374-405)
     lead = sf.shape[:-1]
-    if allocator == "rdo":
-        wl = allocate_bits_rdo(bfu.reshape(-1, *bfu.shape[-2:]), sf.reshape(-1, C.NUM_BFUS), allocation_bias, plain=plain)
-    else:
-        wl = allocate_bits(sf.reshape(-1, C.NUM_BFUS), allocation_bias, plain=plain)
-    wl = wl.reshape(*lead, C.NUM_BFUS)
-    q = quantize(bfu, sf, wl)
+    with profiling.span("carta1.encode.allocate"):
+        if allocator == "rdo":
+            wl = allocate_bits_rdo(bfu.reshape(-1, *bfu.shape[-2:]), sf.reshape(-1, C.NUM_BFUS), allocation_bias,
+                                   plain=plain)
+        else:
+            wl = allocate_bits(sf.reshape(-1, C.NUM_BFUS), allocation_bias, plain=plain)
+        wl = wl.reshape(*lead, C.NUM_BFUS)
 
-    fd = FrameData(
-        n_bfu=torch.full(lead, C.NUM_BFUS, dtype=torch.int32, device=pcm.device),
-        block_modes=modes,
-        scale_factors=sf,
-        word_lengths=wl,
-        quantized=q,
-    )
+    with profiling.span("carta1.encode.quantize"):
+        q = quantize(bfu, sf, wl)
+        fd = FrameData(
+            n_bfu=torch.full(lead, C.NUM_BFUS, dtype=torch.int32, device=pcm.device),
+            block_modes=modes,
+            scale_factors=sf,
+            word_lengths=wl,
+            quantized=q,
+        )
     return fd, new_state
 
 

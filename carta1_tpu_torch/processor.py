@@ -91,17 +91,20 @@ def _encode_batch_dev(frames: torch.Tensor, options: EncoderOptions, state: dict
     device (bitwise the host conversion, half the upload).  Returns (units
     uint8 [C, F, 212] on the device, new state)."""
     _check_engine(engine)
-    if state is None:
-        state = encoder_init_state(frames.device, frames.shape[0])
-    pcm = int16_to_float(frames) if frames.dtype == torch.int16 else frames.to(torch.float32)
-    profiling.nan_check("encoder input PCM", pcm)
-    if engine == "exact":
-        fd, state = exact_encode_step(pcm, state, options, plain=plain)
-    else:
-        fd, state = encode_step(
-            pcm, state, options.band_thresholds, options.allocation_bias, options.allocator, plain=plain
-        )
-    return pack_frames(fd), state
+    with profiling.span("carta1.encode.step", frames):
+        if state is None:
+            state = encoder_init_state(frames.device, frames.shape[0])
+        pcm = int16_to_float(frames) if frames.dtype == torch.int16 else frames.to(torch.float32)
+        profiling.nan_check("encoder input PCM", pcm)
+        if engine == "exact":
+            fd, state = exact_encode_step(pcm, state, options, plain=plain)
+        else:
+            fd, state = encode_step(
+                pcm, state, options.band_thresholds, options.allocation_bias, options.allocator, plain=plain
+            )
+        with profiling.span("carta1.encode.pack"):
+            units = pack_frames(fd)
+    return units, state
 
 
 def encode_pcm(
@@ -153,12 +156,15 @@ def _decode_batch_dev(units: torch.Tensor, state: dict | None, to_i16: bool = Fa
 
     units: uint8 [C, F, 212].  Returns (pcm [C, F, 512] f32, or int16 with
     `to_i16`, on the device; new state)."""
-    if state is None:
-        state = decoder_init_state(units.device, units.shape[0])
-    pcm, state = decode_step(unpack_frames(units, plain=plain), state, plain=plain)
-    profiling.nan_check("decoder PCM", pcm)
-    if to_i16:
-        pcm = float_to_int16(pcm)
+    with profiling.span("carta1.decode.step", units):
+        if state is None:
+            state = decoder_init_state(units.device, units.shape[0])
+        with profiling.span("carta1.decode.unpack"):
+            fd = unpack_frames(units, plain=plain)
+        pcm, state = decode_step(fd, state, plain=plain)
+        profiling.nan_check("decoder PCM", pcm)
+        if to_i16:
+            pcm = float_to_int16(pcm)
     return pcm, state
 
 
