@@ -42,14 +42,16 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> (library, what it replaces in the JAX package: a Pallas
-# kernel, for K4 the whole function that XLA compiled into one program, for
-# K5 and K6 the exact engine's NumPy host code).  One library per source.
+# kernel, for K4 and K7 the whole function that XLA compiled into one
+# program, for K5 and K6 the exact engine's NumPy host code).  One library
+# per source.
 KERNELS = {
     "imdct_exact_64": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
     "imdct_exact_256": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
     "imdct_exact_512": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
     "qmf_taps": ("qmf_taps", "carta1_tpu/ops/exact_qmf_pallas.py:79"),
     "read_fields": ("bitpack_read", "carta1_tpu/ops/bitpack_pallas.py:39"),
+    "pack_units": ("bitpack_write", "carta1_tpu/ops/bitpack.py:120"),
     "alloc_rdo": ("alloc_sweep", "carta1_tpu/ops/bitalloc.py:102"),
     "alloc_reference": ("alloc_sweep", "carta1_tpu/ops/bitalloc.py:187"),
     # the exact engine's kernels: the host code they replace has no Pallas kernel

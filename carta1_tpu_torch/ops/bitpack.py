@@ -16,14 +16,16 @@ offsets 16 + 4i (nibbles of halfwords 1..13); scale factors start at
 in [13, 107)).  Both dynamic reads go through kernel K3
 (`ops/bitpack_kernels.read_fields`).
 
-Packing runs the same windows the other way: every field (header, word
-lengths, scale factors, coefficients) is shifted into place inside the
-32-bit window anchored at its halfword, and the windows of a unit are
-summed per anchor; the offsets and widths are per frame, from its nBfu.
-Fields never share a bit, so the sum is exact in any order (one integer
-`scatter_add_`, where the JAX package selects and sums over [F, 1040, 74]
-because the TPU runtime has no fast scatter).  PyTorch has no uint32
-arithmetic; windows are held in int64.
+Packing on the card is kernel K7 (`bitpack_kernels.pack_units`): one warp
+a frame ORs every field into the unit's 53 words in shared memory.  Its
+plain version, `pack_frames_plain`, runs the same windows as the unpack
+the other way: every field (header, word lengths, scale factors,
+coefficients) is shifted into place inside the 32-bit window anchored at
+its halfword, and the windows of a unit are summed per anchor; the offsets
+and widths are per frame, from its nBfu.  Fields never share a bit, so the
+sum is exact in any order (one integer `scatter_add_`, where the JAX
+package selects and sums over [F, 1040, 74] because the TPU runtime has no
+fast scatter).  PyTorch has no uint32 arithmetic; windows are held in int64.
 """
 
 from __future__ import annotations
@@ -155,16 +157,31 @@ def unpack_frames(units: torch.Tensor, plain: bool = False) -> FrameData:
     )
 
 
-def pack_frames(fd: FrameData) -> torch.Tensor:
+def pack_frames(fd: FrameData, plain: bool = False) -> torch.Tensor:
     """FrameData [..., F, ...] -> uint8 [..., F, 212], each frame laid out for
     its own n_bfu: the header's BFU-amount index is
     searchsorted(BFU_AMOUNTS, n_bfu) (left side, so n_bfu 0 writes index 0
     and packs to C.SILENT_UNIT), word lengths at 16 + 4i, scale factors at
     16 + 4 n_bfu + 6i, coefficients from 16 + 10 n_bfu, and the fields of
     BFUs at or past n_bfu hold no bits.  Bytes equal
-    `carta1_tpu/io/bitstream_np.pack_frames`' for n_bfu in [0, 52]; other
-    values give unspecified bytes, as there, and are not checked (a check
-    would cost a host sync)."""
+    `carta1_tpu/io/bitstream_np.pack_frames`' for n_bfu in [0, 52] and word
+    lengths in [0, 15]; other values give unspecified bytes, as there, and
+    are not checked (a check would cost a host sync).
+
+    CUDA tensors launch K7 (`bitpack_kernels.pack_units`, int32 fields);
+    CPU tensors, or `plain=True` on any device, run `pack_frames_plain`
+    (the yardstick the kernel is held against)."""
+    if plain or fd.word_lengths.device.type == "cpu":
+        return pack_frames_plain(fd)
+    lead = fd.word_lengths.shape[:-1]
+    fields = (getattr(fd, name).reshape(-1, *tail).contiguous() for name, tail in bitpack_kernels.PACK_FIELDS)
+    return bitpack_kernels.pack_units(*fields).reshape(*lead, C.SOUND_UNIT_SIZE)
+
+
+def pack_frames_plain(fd: FrameData) -> torch.Tensor:
+    """`pack_frames` in plain PyTorch on any device: every field of a unit
+    in int64 [N, 1145] columns, summed into 32-bit windows by one
+    `scatter_add_`."""
     lead = fd.word_lengths.shape[:-1]
     dev = fd.word_lengths.device
     nb = fd.n_bfu.reshape(-1, 1).long()                                        # [N, 1]

@@ -1,4 +1,5 @@
-"""K3: the sound-unit field read, CUDA kernel and plain PyTorch version.
+"""K3, the sound-unit field read (CUDA kernel and plain PyTorch version),
+and K7, the sound-unit pack (its plain version is `ops/bitpack.pack_frames_plain`).
 
 Replaces `carta1_tpu/ops/bitpack_pallas.py` `window_reduce_pallas` (body
 `_demux_kernel`), the window read behind `carta1_tpu/ops/bitpack.py`
@@ -15,6 +16,11 @@ frame's window row stays in L1 across its fields.
 win32 is int32 [F, 128] holding the uint32 window bits
 (half[j] << 16) | half[j+1]; offsets and widths are int32 [F, M]; the
 result is the unsigned field value as int32 [F, M].
+
+K7 (`csrc/bitpack_write.cu`, `pack_units`) writes the 212-byte units from
+the five FrameData fields in one launch; it replaces no Pallas kernel (the
+JAX package's device pack is XLA).  Bound on the H100: bytes -- a frame
+reads at most 4,592 bytes of fields and writes 212.  One warp per frame.
 """
 
 from __future__ import annotations
@@ -25,9 +31,13 @@ import functools
 import torch
 
 from carta1_tpu_torch import kernels
-from carta1_tpu_torch.constants import FRAME_BITS
+from carta1_tpu_torch.constants import FRAME_BITS, MAX_BFU_SIZE, NUM_BFUS, SOUND_UNIT_SIZE
 
 N_ANCHORS = 128
+BLOCK_FRAMES = 8            # K7's frames (warps) per block: kWarps of csrc/bitpack_write.cu
+# each field's shape past the frame axis, in K7's argument order
+PACK_FIELDS = (("n_bfu", ()), ("block_modes", (3,)), ("scale_factors", (NUM_BFUS,)),
+               ("word_lengths", (NUM_BFUS,)), ("quantized", (NUM_BFUS, MAX_BFU_SIZE)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,4 +99,39 @@ def read_fields(
     )
     kernels.check(lib, err, "read_fields")
     kernels.count("read_fields")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_kernel():
+    lib = kernels.library("bitpack_write")
+    fn = lib.carta1_pack_units
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def pack_units(
+    n_bfu: torch.Tensor, block_modes: torch.Tensor, scale_factors: torch.Tensor,
+    word_lengths: torch.Tensor, quantized: torch.Tensor,
+) -> torch.Tensor:
+    """K7: FrameData fields int32 [N], [N, 3], [N, 52], [N, 52], [N, 52, 20],
+    contiguous on one card (quantized 16-byte aligned) -> uint8 [N, 212],
+    launched on the current stream.  Raises on anything else: CPU tensors
+    take `ops/bitpack.pack_frames_plain`."""
+    fields = (n_bfu, block_modes, scale_factors, word_lengths, quantized)
+    for t, (name, tail) in zip(fields, PACK_FIELDS):
+        kernels.require(t, f"pack_units {name}", torch.int32, 1 + len(tail), align=16 if name == "quantized" else 1)
+        if t.device.type != "cuda" or t.device != n_bfu.device or tuple(t.shape) != (n_bfu.shape[0], *tail):
+            raise ValueError(
+                f"pack_units: need the five fields [N], [N, 3], [N, 52], [N, 52], [N, 52, 20] on one card, "
+                f"got {name} {tuple(t.shape)} on {t.device} (n_bfu {tuple(n_bfu.shape)} on {n_bfu.device})"
+            )
+    out = torch.empty((n_bfu.shape[0], SOUND_UNIT_SIZE), dtype=torch.uint8, device=n_bfu.device)
+    if out.numel() == 0:
+        return out
+    lib, fn = _pack_kernel()
+    err = kernels.launch(fn, n_bfu.device, *(kernels.ptr(t) for t in fields), kernels.ptr(out), n_bfu.shape[0])
+    kernels.check(lib, err, "pack_units")
+    kernels.count("pack_units")
     return out

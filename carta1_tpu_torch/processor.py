@@ -103,7 +103,7 @@ def _encode_batch_dev(frames: torch.Tensor, options: EncoderOptions, state: dict
                 pcm, state, options.band_thresholds, options.allocation_bias, options.allocator, plain=plain
             )
         with profiling.span("carta1.encode.pack"):
-            units = pack_frames(fd)
+            units = pack_frames(fd, plain=plain)
     return units, state
 
 

@@ -631,3 +631,66 @@ def random_framedata(nframes: int, seed: int = 0, n_bfu=52):
     slot = np.arange(MAX_BFU_SIZE)[None, None, :] < SPECS_PER_BFU[None, :, None]
     q = np.where(slot & (bits[..., None] > 0), q, 0)
     return FrameData(*(x.astype(np.int32) for x in (nb, modes, sf, wl, q)))
+
+
+def random_fields(nframes: int, seed: int, n_bfu, max_wl: int):
+    """Seeded frames under `n_bfu` (an int, or int [F]) with word lengths
+    drawn from [0, max_wl] on the active BFUs and coefficients filling their
+    width, both signs, zeros elsewhere: no budget, so from max_wl 6 on most
+    frames run past bit 1695.  A FrameData of int32 NumPy arrays."""
+    from carta1_tpu_torch.constants import BFU_SLOT_MASK, MAX_BFU_SIZE, NUM_BFUS, WORD_LENGTH_BITS
+    from carta1_tpu_torch.framedata import FrameData
+
+    rng = np.random.default_rng(seed)
+    nb = np.broadcast_to(np.asarray(n_bfu, np.int32), (nframes,)).copy()
+    active = np.arange(NUM_BFUS)[None, :] < nb[:, None]
+    wl = np.where(active, rng.integers(0, max_wl + 1, (nframes, NUM_BFUS)), 0)
+    bits = WORD_LENGTH_BITS[wl]
+    lim = np.where(bits > 0, (1 << np.maximum(bits - 1, 0)) - 1, 0)[..., None]
+    q = rng.integers(-(1 << 15), 1 << 15, (nframes, NUM_BFUS, MAX_BFU_SIZE))
+    q = np.where(BFU_SLOT_MASK[None] & (bits > 0)[..., None], np.clip(q, -lim - 1, lim), 0)
+    modes = np.stack([rng.choice([0, 2], nframes), rng.choice([0, 2], nframes), rng.choice([0, 3], nframes)], 1)
+    sf = np.where(active, rng.integers(0, 64, (nframes, NUM_BFUS)), 0)
+    return FrameData(*(x.astype(np.int32) for x in (nb, modes, sf, wl, q)))
+
+
+def pack_edge_cases(block: int) -> list[tuple[str, object]]:
+    """(name, FrameData of int32 NumPy arrays) for K7 (`bitpack_kernels.pack_units`),
+    each kind (the name's part before its comma) in batches of 1, block - 1,
+    block + 1 and 131 frames (`block`: the frames one block of the kernel
+    takes): n_bfu 0 and each of BFU_AMOUNTS; n_bfu drawn per frame from [0, 52];
+    word lengths up to 15 (fields past bit 1695, dropped); word length 0
+    everywhere; n_bfu below 0 and past 52, up to the int32 limits (the
+    plain pack gives defined bytes there too); and every field outside
+    its range: modes, scale factors and word lengths beyond their bits,
+    coefficients beyond their width, and values in padding slots and in
+    BFUs at or past n_bfu (none may leave a bit)."""
+    from carta1_tpu_torch.constants import BFU_AMOUNTS, MAX_BFU_SIZE, NUM_BFUS
+    from carta1_tpu_torch.framedata import FrameData
+
+    batches = sorted({1, max(block - 1, 1), block + 1, 131})
+    amounts = [0, *BFU_AMOUNTS.tolist()]
+    cases = []
+    for f in batches:
+        rng = np.random.default_rng(7000 + f)
+        cases += [(f"n_bfu {a}, {f} frames", random_framedata(f, 7100 + a + f, a)) for a in amounts]
+        cases.append((f"n_bfu per frame, {f} frames", random_fields(f, 7200 + f, rng.integers(0, 53, f), 2)))
+        for max_wl in (6, 15):
+            cases.append((f"word lengths to {max_wl}, {f} frames", random_fields(f, 7300 + max_wl + f, 52, max_wl)))
+        cases.append((f"word lengths to 15 under n_bfu per frame, {f} frames",
+                       random_fields(f, 7400 + f, rng.integers(0, 53, f), 15)))
+        cases.append((f"word length 0, {f} frames", random_fields(f, 7500 + f, rng.integers(0, 53, f), 0)))
+        outside = np.array([-2**31, -7, -1, 53, 64, 169, 170, 171, 419, 420, 421, 1023, 1024, 1025, 5000, 2**31 - 1])
+        cases.append((f"n_bfu outside [0, 52], {f} frames",
+                      random_fields(f, 7600 + f, rng.choice(outside, f).astype(np.int32), 15)))
+        wild = random_fields(f, 7700 + f, rng.integers(0, 53, f), 15)
+        wild = FrameData(
+            n_bfu=wild.n_bfu,
+            block_modes=rng.integers(-3, 8, (f, 3)).astype(np.int32),
+            scale_factors=rng.integers(-200, 300, (f, NUM_BFUS)).astype(np.int32),
+            word_lengths=np.where(rng.random((f, NUM_BFUS)) < 0.1, rng.integers(-3, 0, (f, NUM_BFUS)),
+                                  wild.word_lengths).astype(np.int32),
+            quantized=rng.integers(-2**31, 2**31, (f, NUM_BFUS, MAX_BFU_SIZE), dtype=np.int64).astype(np.int32),
+        )
+        cases.append((f"fields outside their ranges, {f} frames", wild))
+    return cases

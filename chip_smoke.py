@@ -8,14 +8,17 @@ Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
   2. build: compiles every kernel (K1 IMDCT at sizes 64/256/512, K2 QMF
      taps, K3 field read, K4 the two bit allocators, K5 the reference's
-     heap allocator, K6 the fft.js forward MDCT and magnitude spectrum)
-     and the rate probe from carta1_tpu_torch/csrc, all nvcc runs at once;
+     heap allocator, K6 the fft.js forward MDCT and magnitude spectrum, K7
+     the sound-unit pack) and the rate probe from carta1_tpu_torch/csrc,
+     all nvcc runs at once;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the first stereo 8192-frame chunk of the transcode gives it,
      and on edge inputs (batches around a block's tile, small widths, +0,
      -0, denormals, overflow to inf, lone samples at a row's ends; for K4
      NaN and inf coefficients, silent and all-63 frames, exact ties across
-     BFUs, plateaus of the hull, each at biases 0.7, 1.0 and 2.0): 0
+     BFUs, plateaus of the hull, each at biases 0.7, 1.0 and 2.0; for K7
+     testing.pack_edge_cases, every BFU amount, n_bfu per frame and outside
+     [0, 52], fields past bit 1695 and outside their ranges): 0
      differing words allowed; kernel, plain and library-call times, the
      time of an empty launch, and the kernel's bound: the largest of its
      bytes at the memory rate, its arithmetic at the data sheet's rate and,
@@ -132,8 +135,8 @@ Phases (each raises on failure; nothing is caught):
      under mixed amounts, and stereo [2, 8192] chunks at n_bfu 52 and at
      mixed amounts; pack_frames on the card byte-equal to the same call on
      the CPU, unpack_frames (K3) gives the fields back and re-packing the
-     bytes (launch counters reset just before and read just after: K3 must
-     have launched); pack_frames(FrameData.zeros(1)) equals C.SILENT_UNIT;
+     bytes (launch counters reset just before and read just after: K3 and
+     K7 must have launched); pack_frames(FrameData.zeros(1)) equals C.SILENT_UNIT;
      FrameData.concatenate of parts on the card equals the whole and packs
      to the parts' units; the pack's time at n_bfu 52 and at mixed amounts
      on a stereo chunk (CUDA events, and one call under the profiler).
@@ -1376,8 +1379,8 @@ def pack_phase(dev: torch.device, smi: str) -> dict:
         packed[name] = units
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    if not launches["read_fields"]:
-        raise AssertionError(f"pack phase launched no read_fields: {launches}")
+    if not (launches["read_fields"] and launches["pack_units"]):
+        raise AssertionError(f"pack phase launched no read_fields or no pack_units: {launches}")
 
     silent = bitpack.pack_frames(FrameData.zeros(1, device=dev)).cpu().numpy()
     if not np.array_equal(silent[0], C.SILENT_UNIT):
@@ -1422,7 +1425,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs the GPU", file=sys.stderr)
         return 2
 
-    from carta1_tpu_torch import EncoderOptions, decode_units, encode_frames, encode_pcm, kernels, probe_rates, testing
+    from carta1_tpu_torch import (EncoderOptions, convert, decode_units, encode_frames, encode_pcm, kernels, probe_rates,
+                                  testing)
     from carta1_tpu_torch import constants as C
     from carta1_tpu_torch.constants import QMF_EVEN, QMF_ODD
     from carta1_tpu_torch.io.aea import read_aea
@@ -1559,6 +1563,15 @@ def main() -> int:
     check("read_fields", reads, bitpack_kernels.read_fields_plain, bitpack_kernels.read_fields,
           read_bytes, 0, reps=50,
           library=lambda: [torch.gather(win64, 1, h) for h in anchors])
+
+    # K7, the pack, on that chunk's fields (the encoder's: unpacking its units gives them back); its bound is the
+    # fields' bytes read once (n_bfu, modes, scale factors, word lengths, coefficients) and the units written
+    pack_bytes = frames * (4 + 3 * 4 + 2 * C.NUM_BFUS * 4 + C.NUM_BFUS * C.MAX_BFU_SIZE * 4 + 212)
+    print("pack_units: library_ms null -- no PyTorch call packs bit fields")
+    check("pack_units", [(bitpack.unpack_frames(chunk.reshape(-1, 212)),)], bitpack.pack_frames_plain,
+          bitpack.pack_frames, pack_bytes, 0, reps=50,
+          edge_cases=[(convert.framedata_from_numpy(fd, dev),)
+                      for _, fd in testing.pack_edge_cases(bitpack_kernels.BLOCK_FRAMES)])
 
     # K4, both allocators, on that chunk's coefficients and scale factors
     bfu, sf, _, _ = analysis_step(int16_to_float(upload(0)), encoder_init_state(dev, 2), options.band_thresholds)

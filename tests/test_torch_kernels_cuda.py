@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from carta1_tpu_torch import EncoderOptions, decode_units, encode_frames, encode_pcm, kernels, testing
+from carta1_tpu_torch import EncoderOptions, FrameData, convert, decode_units, encode_frames, encode_pcm, kernels, testing
+from carta1_tpu_torch import constants as C
 from carta1_tpu_torch.io.aea import read_aea
 from carta1_tpu_torch.gold import fftjs, transforms
 from carta1_tpu_torch.ops import (bitalloc, bitalloc_kernels, bitpack, bitpack_kernels, fftjs_kernels, heap_kernels,
@@ -417,6 +418,102 @@ def test_gold_imdct_js_and_qmf_synthesis_stream_on_the_card(card):
     assert kernels.LAUNCHES["imdct_exact_512"] and kernels.LAUNCHES["qmf_taps"]
 
 
+def _pack_call(frames: int = 4, dtype=torch.int32, **change):
+    """pack_units on CPU fields of `frames` frames, `change` replacing some."""
+    fields = {name: torch.zeros((frames, *tail), dtype=dtype) for name, tail in bitpack_kernels.PACK_FIELDS}
+    fields.update(change)
+    return lambda: bitpack_kernels.pack_units(*fields.values())
+
+
+def _pack_checked(fd: FrameData) -> torch.Tensor:
+    """K7's units of `fd` (on the card), held to the plain version's bytes,
+    with one launch counted."""
+    before = kernels.LAUNCHES["pack_units"]
+    got = bitpack.pack_frames(fd)
+    assert kernels.LAUNCHES["pack_units"] == before + 1
+    assert got.dtype == torch.uint8 and got.shape == (*fd.n_bfu.shape, C.SOUND_UNIT_SIZE)
+    assert torch.equal(got, bitpack.pack_frames(fd, plain=True))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bfu", [0, *C.BFU_AMOUNTS.tolist(), "per frame"])
+def test_pack_kernel_every_bfu_amount_matches_plain(card, n_bfu):
+    """Each frame laid out for its own n_bfu: every amount, and amounts
+    drawn per frame from all of [0, 52] (most of them no BFU amount)."""
+    n = 2048
+    nb = np.random.default_rng(21).integers(0, 53, n) if n_bfu == "per frame" else n_bfu
+    _pack_checked(convert.framedata_from_numpy(testing.random_framedata(n, 21, nb), card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_wl", [0, 6, 15])
+@pytest.mark.parametrize("n_bfu", [52, "per frame"])
+def test_pack_kernel_random_fields_match_plain(card, max_wl, n_bfu):
+    """Word lengths up to 15 run far past bit 1695 (dropped); 0 everywhere
+    leaves the header and the side information alone."""
+    n = 4099
+    nb = np.random.default_rng(max_wl).integers(0, 53, n) if n_bfu == "per frame" else n_bfu
+    _pack_checked(convert.framedata_from_numpy(testing.random_fields(n, 30 + max_wl, nb, max_wl), card))
+
+
+@pytest.mark.cuda
+def test_pack_kernel_edge_inputs_match_plain(card):
+    """Batches around a block's frames; every BFU amount, n_bfu per frame,
+    below 0 and past 52, word lengths 0 and up to 15, every field outside
+    its range."""
+    for name, fd in testing.pack_edge_cases(bitpack_kernels.BLOCK_FRAMES):
+        before = kernels.LAUNCHES["pack_units"]
+        got = bitpack.pack_frames(convert.framedata_from_numpy(fd, card))
+        assert kernels.LAUNCHES["pack_units"] == before + 1, name
+        want = bitpack.pack_frames_plain(convert.framedata_from_numpy(fd, "cpu"))
+        assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.cuda
+def test_pack_kernel_keeps_channel_axis(card):
+    """[2, F] fields as one launch, equal to each channel alone; a strided
+    view of them (copied where not contiguous) equal to its copy's units."""
+    nb = np.random.default_rng(8).integers(0, 53, (2, 777))
+    rows = [testing.random_fields(777, 40 + ch, nb[ch], 15) for ch in range(2)]
+    fd = convert.framedata_from_numpy(FrameData(*(np.stack([getattr(r, k) for r in rows]) for k in FrameData.fields())), card)
+    got = _pack_checked(fd)
+    for ch in range(2):
+        assert torch.equal(got[ch], _pack_checked(fd[ch]))
+    strided = fd[:, ::3]
+    assert not strided.quantized.is_contiguous()
+    assert torch.equal(_pack_checked(strided), got[:, ::3])
+
+
+@pytest.mark.cuda
+def test_pack_kernel_at_the_batched_cell_chunk(card):
+    """One call's encoder output in the batched encode cell: 32 rows of
+    8,192 frames (262,144 frames) in one launch, equal to the plain pack."""
+    g = torch.Generator(device=card).manual_seed(32)
+    t = torch.arange(8192 * 512, device=card, dtype=torch.float32) / 44100.0
+    tones = torch.sin(2 * np.pi * (110.0 + 55.0 * torch.arange(32, device=card, dtype=torch.float32))[:, None] * t)
+    pcm = 0.3 * tones + 0.05 * torch.randn((32, 8192 * 512), generator=g, device=card)
+    fd, _ = encode_frames(pcm.reshape(32, 8192, 512), device=card)
+    del pcm, tones, t
+    assert fd.quantized.is_contiguous() and fd.word_lengths.is_contiguous()
+    _pack_checked(fd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["tpu", "exact"])
+def test_encode_pcm_units_equal_with_and_without_the_pack_kernel(card, engine):
+    """`plain=True` packs with the plain version, the default with K7, once
+    per chunk: the same units."""
+    pcm = testing.synth_audio(300, 2)
+    kernels.reset_launches()
+    got = encode_pcm(pcm, engine=engine, chunk_frames=128, device=card)
+    assert kernels.LAUNCHES["pack_units"] == 3
+    kernels.reset_launches()
+    want = encode_pcm(pcm, engine=engine, chunk_frames=128, device=card, plain=True)
+    assert kernels.LAUNCHES["pack_units"] == 0
+    assert np.array_equal(got, want)
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -441,6 +538,11 @@ def test_gold_imdct_js_and_qmf_synthesis_stream_on_the_card(card):
             torch.zeros(2, 128, dtype=torch.int32), torch.zeros(3, 5, dtype=torch.int32),
             torch.zeros(3, 5, dtype=torch.int32), 13, 107,
         ),
+        _pack_call(dtype=torch.int64),
+        _pack_call(quantized=torch.zeros(4, 52, 19, dtype=torch.int32)),
+        _pack_call(n_bfu=torch.zeros(5, dtype=torch.int32)),
+        _pack_call(word_lengths=torch.zeros(52, 4, dtype=torch.int32).T),
+        _pack_call(),                                                   # CPU tensors: the plain version's
     ],
 )
 def test_kernel_wrappers_reject_bad_inputs(call):

@@ -1,10 +1,13 @@
 """The PyTorch port's device pack against the host packers and the JAX package.
 
-`ops/bitpack.pack_frames` has no kernel of its own (one integer
-`scatter_add_`); its bytes must equal `io/bitstream_np.pack_frames` (the
-authoritative NumPy packer) for every BFU amount, `pack_frames_fast` (the
-native tier) and the JAX in-graph pack (n_bfu 52, the encoder's), and the
-port's own unpack must give the fields back.
+On CPU tensors `ops/bitpack.pack_frames` runs its plain version,
+`pack_frames_plain` (one integer `scatter_add_`); its bytes must equal
+`io/bitstream_np.pack_frames` (the authoritative NumPy packer) for every
+BFU amount, `pack_frames_fast` (the native tier) and the JAX in-graph pack
+(n_bfu 52, the encoder's), and the port's own unpack must give the fields
+back.  On the card it launches K7 (`csrc/bitpack_write.cu`); a NumPy
+emulation of K7's thread-to-data map is held to the plain version here,
+the kernel itself in `tests/test_torch_kernels_cuda.py`.
 """
 
 import jax
@@ -23,7 +26,7 @@ from carta1_tpu_torch import constants as C
 from carta1_tpu_torch import convert, testing
 from carta1_tpu_torch.framedata import FrameData
 from carta1_tpu_torch.io import aea
-from carta1_tpu_torch.ops import bitpack
+from carta1_tpu_torch.ops import bitpack, bitpack_kernels
 
 from signals import frames, sine, white_noise
 
@@ -37,17 +40,7 @@ def _signal(nframes=8, seed=5):
 def _random_fd(nframes: int, seed: int, max_wl: int) -> JaxFrameData:
     """Random fields of an n_bfu == 52 frame; coefficients fill their width,
     both signs.  With max_wl 15 most frames overflow the 1696 bits."""
-    rng = np.random.default_rng(seed)
-    wl = rng.integers(0, max_wl + 1, (nframes, 52)).astype(np.int32)
-    bits = C.WORD_LENGTH_BITS[wl]
-    lim = np.where(bits > 0, (1 << np.maximum(bits - 1, 0)) - 1, 0)[..., None]
-    q = rng.integers(-(1 << 15), 1 << 15, (nframes, 52, 20))
-    q = np.where(C.BFU_SLOT_MASK[None] & (bits > 0)[..., None], np.clip(q, -lim - 1, lim), 0).astype(np.int32)
-    modes = np.stack([rng.choice([0, 2], nframes), rng.choice([0, 2], nframes), rng.choice([0, 3], nframes)], 1)
-    return JaxFrameData(
-        n_bfu=np.full(nframes, 52, np.int32), block_modes=modes.astype(np.int32),
-        scale_factors=rng.integers(0, 64, (nframes, 52)).astype(np.int32), word_lengths=wl, quantized=q,
-    )
+    return _jax_fd(testing.random_fields(nframes, seed, 52, max_wl))
 
 
 def _pack(fd: JaxFrameData) -> np.ndarray:
@@ -147,6 +140,85 @@ def test_pack_of_a_silent_frame_is_the_silent_unit():
     got = bitpack.pack_frames(FrameData.zeros(1, device="cpu")).numpy()
     assert np.array_equal(got[0], C.SILENT_UNIT)
     assert np.array_equal(got, np_pack(JaxFrameData.zeros(1)))
+
+
+@pytest.mark.parametrize("source", ["encoded", "mixed amounts", "channel axis"])
+def test_pack_plain_equals_the_default_on_cpu_tensors(source):
+    """CPU tensors take the plain version whatever `plain` says."""
+    if source == "encoded":
+        fd = convert.framedata_from_numpy(gold_encode_frames(_signal(6, seed=15))[0], "cpu")
+    elif source == "mixed amounts":
+        fd = convert.framedata_from_numpy(_amount_fd("mixed", 19), "cpu")
+    else:
+        a, b = _amount_fd("mixed", 5), _amount_fd(52, 5)
+        fd = convert.framedata_from_numpy(FrameData(*(np.stack([getattr(a, k), getattr(b, k)]) for k in FrameData.fields())), "cpu")
+    got = bitpack.pack_frames(fd, plain=True)
+    assert torch.equal(got, bitpack.pack_frames(fd)) and torch.equal(got, bitpack.pack_frames_plain(fd))
+
+
+def _k7_emulation(fd: FrameData) -> np.ndarray:
+    """`csrc/bitpack_write.cu` in NumPy, all frames at once: lane l's BFUs 2l
+    and 2l + 1 and the warp's inclusive scan of their bits, the 16-byte
+    vector v of a frame's coefficients as BFU v // 5, slots 4 (v % 5) on,
+    and `put` into 54 uint32 words (the 54th dropped), stored big-endian."""
+    nb_in = fd.n_bfu.astype(np.int64)
+    n = nb_in.shape[0]
+    nb = np.clip(nb_in, 0, 1024)
+    rows = np.arange(n)
+    words = np.zeros((n, 54), np.uint64)
+    specs = C.SPECS_PER_BFU.astype(np.int64)
+
+    def put(off, width, v, take):
+        take = take & (off < C.FRAME_BITS)
+        r, off, width, v = rows[take], off[take], width[take], v[take].astype(np.uint64) & 0xFFFFFFFF
+        word, end = off >> 5, (off & 31) + width
+        one = end <= 32
+        np.bitwise_or.at(words, (r[one], word[one]), (v[one] << (32 - end[one]).astype(np.uint64)) & 0xFFFFFFFF)
+        two = ~one
+        np.bitwise_or.at(words, (r[two], word[two]), v[two] >> (end[two] - 32).astype(np.uint64))
+        np.bitwise_or.at(words, (r[two], word[two] + 1), (v[two] << (64 - end[two]).astype(np.uint64)) & 0xFFFFFFFF)
+
+    modes = fd.block_modes.astype(np.int64)
+    amount = (C.BFU_AMOUNTS[None, :].astype(np.int64) < nb_in[:, None]).sum(axis=1)
+    header = ((2 - modes[:, 0]) << 14 | (2 - modes[:, 1]) << 12 | (3 - modes[:, 2]) << 10 | amount << 5) & 0xFFFF
+    put(np.zeros(n, np.int64), np.full(n, 16), header, np.ones(n, bool))
+
+    wl = fd.word_lengths.astype(np.int64)
+    w = np.zeros((n, 52), np.int64)
+    for lane in range(26):
+        for i in (2 * lane, 2 * lane + 1):
+            act = i < nb
+            put(16 + 4 * np.full(n, i), np.full(n, 4), wl[:, i] & 15, act)
+            put(16 + 4 * nb + 6 * i, np.full(n, 6), fd.scale_factors[:, i].astype(np.int64) & 63, act)
+            w[:, i] = np.where(act & (wl[:, i] > 0), np.minimum(wl[:, i], 15) + 1, 0)
+    bits = np.zeros((n, 32), np.int64)
+    bits[:, :26] = w[:, 0::2] * specs[0::2] + w[:, 1::2] * specs[1::2]
+    start = 16 + 10 * nb[:, None] + np.cumsum(bits, axis=1) - bits
+    first = np.stack([start[:, :26], start[:, :26] + w[:, 0::2] * specs[0::2]], axis=2).reshape(n, 52)
+
+    vecs = fd.quantized.astype(np.int64).reshape(n, 260, 4)
+    for v in range(260):
+        i, k = v // 5, 4 * (v % 5)
+        wi = w[:, i]
+        if k >= specs[i]:
+            continue
+        for j in range(min(4, specs[i] - k)):
+            put(first[:, i] + (k + j) * wi, wi, vecs[:, v, j] & ((1 << wi) - 1), wi > 0)
+    return words[:, :53].astype(">u4").view(np.uint8).reshape(n, C.SOUND_UNIT_SIZE)
+
+
+PACK_EDGE = testing.pack_edge_cases(bitpack_kernels.BLOCK_FRAMES)
+
+
+@pytest.mark.parametrize("kind", sorted({name.split(",")[0] for name, _ in PACK_EDGE}))
+def test_pack_kernel_map_emulated_matches_plain(kind):
+    """K7's thread-to-data map, emulated, gives the plain version's bytes on
+    every edge input of the kind (batches around a block's frames)."""
+    cases = [(name, fd) for name, fd in PACK_EDGE if name.split(",")[0] == kind]
+    assert len(cases) == 4
+    for name, fd in cases:
+        want = bitpack.pack_frames_plain(convert.framedata_from_numpy(fd, "cpu")).numpy()
+        assert np.array_equal(_k7_emulation(fd), want), name
 
 
 def test_interleave_stereo_matches_jax_package():
