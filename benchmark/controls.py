@@ -83,7 +83,7 @@ def control(name: str, cell: spec.Cell):
         return (lambda step: reference_encode_step(cell.config, torch.float32)), contextlib.nullcontext()
     if name == "batched_engine":
         cfg = {**cell.config, "engine": "tpu"}
-        return (lambda step: program.step(cfg, "encode")), contextlib.nullcontext()
+        return (lambda step: spec.op(cell.op, cell.root).step(cfg, run.cards(cell.chips))), contextlib.nullcontext()
     if name == "tf32":
         return None, _TF32()
     raise ValueError(f"unknown control {name!r}")
@@ -144,11 +144,10 @@ def main(argv=None) -> int:
     ap.add_argument("--no-program", action="store_true", help="run the controls and faults only")
     ap.add_argument("--out", help="also append the lines to this file")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("controls: no CUDA card", file=sys.stderr)
-        return 2
-    device = torch.device("cuda", 0)
     cell = spec.load(args.workload)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        print(f"controls: this cell needs {cell.chips} CUDA card(s)", file=sys.stderr)
+        return 2
     sides = (([] if args.no_program else ["program"]) + args.control + [f"fault:{f}" for f in args.fault]
              + [f"units:{f}" for f in args.units_fault])
     for seed in (int(s) for s in args.seeds.split(",")):
@@ -163,7 +162,8 @@ def main(argv=None) -> int:
                 wrap, ctx = control(side, cell)
             t0 = time.perf_counter()
             with ctx:
-                result, checks = run.run_cell(cell, seed, args.seconds, False, device, t0, wrap=wrap)
+                result, checks = run.run_cell(cell, seed, args.seconds, False, run.cards(cell.chips), t0,
+                                              wrap=wrap)
             line = {"workload": cell.name, "seed": seed, "side": side, "correct": result["correct"],
                     "calls": result["attempted"], "numbers": {k: v["value"] for k, v in checks.items()},
                     "metrics": {k: v["value"] for k, v in result["metrics"].items()}}

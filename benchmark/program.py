@@ -1,4 +1,4 @@
-"""The system under test: carta1_tpu_torch's chunk step, and nothing else.
+"""The system under test: carta1_tpu_torch, as the benchmark drives it.
 
 Every public entry of `carta1_tpu_torch.processor` (`encode_pcm`,
 `encode_clips`, `encode_file`, `decode_units`, `decode_file`) runs one of
@@ -10,15 +10,20 @@ stream state from chunk to chunk:
   * `_decode_batch_dev(units, state, to_i16=True)`: units -> int16 PCM
     [rows, F, 512].
 
-The benchmark drives these with the configuration's options and engine.
-This is the only module of the benchmark that imports the package, and
-it takes from it only those steps, `EncoderOptions`, the kernels' build
-and, for the decode cells' control, the float32 decoder.
+A cell drives the entry its traffic names, a file of `benchmark/ops/`
+(`spec.op`); those files, `benchmark/spans.py` (which reads the program's
+`profiling.spans`) and this module are the benchmark's only modules that
+import the package.  This one holds what the harness and the controls
+share: the package's import, `EncoderOptions`, the kernels' build, the
+units of whole tracks that a decode cell reads, and, for the decode
+cells' control, the float32 decoder.
 """
 
 from __future__ import annotations
 
 import torch
+
+from benchmark import spec
 
 
 def load() -> None:
@@ -32,24 +37,12 @@ def options(config: dict):
     return EncoderOptions(**config["options"])
 
 
-def step(config: dict, op: str):
-    """`fn(chunk, state) -> (output, state)` for the cell's operation."""
-    from carta1_tpu_torch import processor
-
-    if op == "encode":
-        opts, engine = options(config), config["engine"]
-        return lambda chunk, state: processor._encode_batch_dev(chunk, opts, state, engine=engine)
-    if op == "decode":
-        return lambda chunk, state: processor._decode_batch_dev(chunk, state, to_i16=True)
-    raise ValueError(f"unknown operation {op!r}")
-
-
 def encode_track(config: dict, pcm: torch.Tensor, wrap=None) -> torch.Tensor:
     """The units of whole tracks, int16 [chunks, rows, F, 512] -> uint8
     [chunks, rows, F, 212], encoded by the configuration's engine with
     the state carried through the chunks: a decode cell's input, made at
     set-up.  `wrap(step)` may plant a fault in the encoder (`controls`)."""
-    fn = step(config, "encode")
+    fn = spec.op("encode").step(config, (pcm.device,))
     if wrap is not None:
         fn = wrap(fn)
     state, out = None, []

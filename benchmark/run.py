@@ -3,24 +3,32 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 (or `python3 -m benchmark.run ...`), from the root of a checkout, on a
-machine with the card(s) the cell asks for.
+machine with the card(s) the cell asks for.  A cell of `chips` N runs on
+cuda:0 .. cuda:N-1; its traffic is made, and its calls take and return
+their data, on the first.
+
+The cell's traffic names its entry, a file `benchmark/ops/<op>.py`
+(`spec.op`): what the calls read, made at set-up from the traffic's PCM,
+and the chunk step over the cell's cards.  Its `FAMILY` names the
+end-to-end metrics.
 
 Set-up (counted in `setup_s`, from the start of this script to the first
 timed call): the package's kernels found in the checkout's build
 directory (built there by the first run), the cell's traffic made on the
-card from the seed, for a decode cell the units of those tracks encoded
-by the configuration's engine, then one whole track's calls (every shape
-the window uses) run once.
+card from the seed, what the calls read made from it (for a decode cell
+the units of those tracks, encoded by the configuration's engine), then
+one whole track's calls (every shape the window uses) run once.
 
 The window is a closed loop over the chunk step: each call is one chunk
-of all rows, ends in `torch.cuda.synchronize()` (the caller takes its
-result), carries the rows' stream states through a track's chunks and
-starts the next batch of tracks from the zero state.  It runs whole calls
-until `--seconds` have passed; the rate is all the channel-frames of all
-its calls over all its time, the tail is the 95th percentile of all its
-calls' times.  With `--trace 1` a stretch of whole calls after the window
+of all rows, ends in a synchronise of every card of the cell (the caller
+takes its result), carries the rows' stream states through a track's
+chunks and starts the next batch of tracks from the zero state.  It runs
+whole calls until `--seconds` have passed; the rate is all the
+channel-frames of all its calls over all its time, the tail is the 95th
+percentile of all its calls' times.  With `--trace 1` a stretch of whole calls after the window
 runs under `torch.profiler`, and the cell's per-layer metrics are read
-from it instead.
+from it instead; the device's busy and idle are the means over the
+cell's cards (`trace`).  `memory_peak_bytes` is the fullest card's peak.
 
 After the window (and the memory peak) the outputs of calls drawn from
 the seed are held against the plain reference (`judge`), and so are a
@@ -67,6 +75,11 @@ def log(*args) -> None:
     print(*args, file=sys.stderr, flush=True)
 
 
+def cards(n: int) -> tuple[torch.device, ...]:
+    """The devices of a cell of `chips` n: cuda:0 .. cuda:n-1."""
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
 def card(device: torch.device) -> dict:
     """The device record of the result: name, count, power limit."""
     if device.type != "cuda":
@@ -101,31 +114,37 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
-def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device: torch.device,
+def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, devices: tuple[torch.device, ...],
              t0: float, wrap=None) -> tuple[dict, dict]:
-    """One run of `cell`: (the result line's object, the compared numbers
-    with their limits).  `wrap(step)` may put another step in the program's
+    """One run of `cell` on `devices` (its traffic made on the first, which
+    also judges): (the result line's object, the compared numbers with
+    their limits).  `wrap(step)` may put another step in the program's
     place (the controls and the planted faults of `controls.py`)."""
-    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    home = devices[0]
+    gpus = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+
+    def sync():
+        for d in gpus:
+            torch.cuda.synchronize(d)
     marks = [("start", t0), ("imports", time.perf_counter())]
-    if device.type == "cuda":
+    if gpus:
         program.build()
-        torch.zeros(1, device=device)
+        for d in gpus:
+            torch.zeros(1, device=d)
         sync()
     marks.append(("kernels and context", time.perf_counter()))
     chunks, rows, frames, _ = traffic_gen.shape(cell.traffic)
+    op = spec.op(cell.op, cell.root)
     with torch.no_grad():
-        pcm = traffic_gen.make(cell.traffic, seed, device)
+        pcm = traffic_gen.make(cell.traffic, seed, home)
         sync()
         marks.append(("traffic", time.perf_counter()))
-        if cell.op == "decode":
-            inputs = program.encode_track(cell.config, pcm)
+        inputs = op.inputs(cell.config, pcm, devices)
+        if inputs is not pcm:
             sync()
-            marks.append(("units encoded", time.perf_counter()))
-            del pcm
-        else:
-            inputs = pcm
-        step = program.step(cell.config, cell.op)
+            marks.append(("inputs made", time.perf_counter()))
+        del pcm
+        step = op.step(cell.config, devices)
         if wrap is not None:
             step = wrap(step)
 
@@ -160,9 +179,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device: t
                 break
         window_s = end - start
         del out, state
-        dev = card(device)
+        dev = card(home)
         dev["count"] = cell.chips
-        dev["memory_peak_bytes"] = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        peaks = [torch.cuda.max_memory_allocated(d) for d in gpus] or [0]
+        dev["memory_peak_bytes"], dev["memory_peak_bytes_by_card"] = max(peaks), peaks
 
         work = len(times) * rows * frames
         metrics, layer_ctx = {}, None
@@ -172,22 +192,24 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device: t
                     st["s"] = None
                 o, st["s"] = step(inputs[j % chunks], st["s"])
                 return o
-            tr = trace.profile(call, 2 * chunks, sync)
-            layer_ctx = {"trace": tr, "cell": cell, "rows": rows, "frames": frames, "op": cell.op}
-            dev["busy_s"], dev["window_s"] = tr.busy_s, tr.wall_s
+            # on the CPU no operation runs on a device: one card, idle throughout
+            tr = trace.profile(call, 2 * chunks, sync, [d.index for d in gpus] or [0])
+            layer_ctx = {"trace": tr, "cell": cell, "rows": rows, "frames": frames, "op": op.FAMILY}
+            dev["busy_s"], dev["window_s"], dev["busy_s_by_card"] = tr.busy_s, tr.wall_s, tr.busy_s_by_card
             for m in cell.per_layer:
                 value = spec.reader(m["name"], cell.root)(layer_ctx)
                 if value is not None:
                     metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         else:
-            produced = {f"{cell.op}_fps": stats.rate(work, window_s),
-                        f"{cell.op}_p95_ms": 1e3 * stats.p95(times), "setup_s": setup_s}
+            produced = {f"{op.FAMILY}_fps": stats.rate(work, window_s),
+                        f"{op.FAMILY}_p95_ms": 1e3 * stats.p95(times), "setup_s": setup_s}
             for m in cell.end_to_end:
                 if m["name"] not in produced:
-                    raise KeyError(f"the harness has no metric {m['name']!r} for a {cell.op} cell")
+                    raise KeyError(f"the harness has no metric {m['name']!r} for a {op.FAMILY} cell")
                 metrics[m["name"]] = {"value": produced[m["name"]], "unit": m["unit"]}
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
+        for d in gpus:
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
 
         missing = sorted(sample - set(held))
         t = time.perf_counter()
@@ -195,7 +217,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device: t
         if "units" in cell.limits:
             # a decode cell's units came from the program's encoder at set-up: they are held to the
             # reference too, against the tracks made again from the seed
-            pcm = traffic_gen.make(cell.traffic, seed, device)
+            pcm = traffic_gen.make(cell.traffic, seed, home)
             got = judge.judge(cell.limits["units"], pcm, dict(enumerate(inputs)), lambda c: c, cell.config)
             numbers.update({f"units.{k}": v for k, v in got.items()})
             del pcm
@@ -206,8 +228,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device: t
               "device": dev}
     if layer_ctx is not None:
         result["breakdown"] = layer_ctx["trace"].breakdown()
-    # the units of one whole track: a decode cell's input, or one judged output per chunk
-    track = list(inputs) if cell.op == "decode" else [
+    # the units of one whole track: the input where the calls read units, or one judged output per chunk
+    track = list(inputs) if inputs.dtype == torch.uint8 else [
         next((held[i] for i in sorted(held) if i % chunks == k), None) for k in range(chunks)]
     if all(t is not None and t.dtype == torch.uint8 for t in track):
         short = [short_band_frames(t) for t in track]
@@ -230,17 +252,18 @@ def main(argv=None) -> int:
 
     cell = spec.load(args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
-        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        log(f"no result: this cell needs {cell.chips} CUDA card(s); this machine has {cards}")
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        log(f"no result: this cell needs {cell.chips} CUDA card(s); this machine has {have}")
         return 2
-    device = torch.device("cuda", 0)
+    devices = cards(cell.chips)
     t = time.perf_counter()
-    torch.cuda.set_device(device)
-    torch.zeros(1, device=device)
-    log(f"process: imports {t - _T0:.3f} s, the card's context {time.perf_counter() - t:.3f} s")
+    torch.cuda.set_device(devices[0])
+    for d in devices:
+        torch.zeros(1, device=d)
+    log(f"process: imports {t - _T0:.3f} s, the cards' contexts {time.perf_counter() - t:.3f} s")
     log(f"cell {cell.name}: config {cell.config['name']}, traffic op {cell.op}, seed {args.seed}, "
-        f"{args.seconds} s, trace {args.trace}")
-    result, checks = run_cell(cell, args.seed, args.seconds, bool(args.trace), device, _T0)
+        f"{args.seconds} s, trace {args.trace}, {len(devices)} card(s)")
+    result, checks = run_cell(cell, args.seed, args.seconds, bool(args.trace), devices, _T0)
     log(f"card: {result['device']['kind']}, power limit {result['device'].get('power_limit')}")
     bad = forbidden_modules()
     if bad:

@@ -11,8 +11,9 @@ ended in a synchronise), this module takes the last `trace.calls` step
 records of the cell's operation with their descendants and averages a
 span's time or count over those calls.
 
-After `program.py`, this is the second module of the benchmark that
-touches the package, and it reads only `profiling.spans`.  A program
+Besides `program.py` and the entries of `benchmark/ops/`, this is the
+only module of the benchmark that touches the package, and it reads
+only `profiling.spans`.  A program
 without it (an older commit) gives no record: every reader here then
 returns None, as it does for a span or a device time that is missing,
 and never 0.

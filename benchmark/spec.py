@@ -6,13 +6,19 @@
   * `benchmark/traffic/<traffic>.json`: the operation, the shapes and the
     name of the content recipe, `benchmark/traffic/content/<content>.json`
     (`traffic_gen`), which mixes of other operations or shapes share;
+  * `benchmark/ops/<op>.py`: the entry of the package that the traffic's
+    `op` drives: `FAMILY` ("encode" or "decode", which names the cell's
+    end-to-end metrics and is the `op` its metric readers see),
+    `inputs(config, pcm, devices)`, what the calls read, made at set-up
+    from the traffic's PCM, and `step(config, devices) -> fn(chunk,
+    state) -> (output, state)`, over the cell's cards;
   * `benchmark/limits/<workload>.json`: the comparison that decides
     `correct` (`judge`) and the limit of each number it compares;
   * `benchmark/metrics/<metric>.py`: one reader per per-layer metric, a
     function `read(ctx) -> float | None`.
 
-A new cell, configuration, traffic mix or metric is new files and new
-entries; no code here names one.
+A new cell, configuration, traffic mix, entry or metric is new files and
+new entries; no code here names one.
 """
 
 from __future__ import annotations
@@ -73,10 +79,20 @@ def load_traffic(name: str, root: Path = ROOT) -> dict:
     return {**traffic, "content": _json(root / "benchmark" / "traffic" / "content" / f"{traffic['content']}.json")}
 
 
-def reader(metric: str, root: Path = ROOT):
-    """The `read` function of `benchmark/metrics/<metric>.py`."""
-    path = root / "benchmark" / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{metric.replace('.', '_')}", path)
+def _module(kind: str, name: str, root: Path):
+    """The module `root/benchmark/<kind>/<name>.py`, loaded from its file."""
+    path = root / "benchmark" / kind / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"benchmark_{kind}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str, root: Path = ROOT):
+    """The `read` function of `benchmark/metrics/<metric>.py`."""
+    return _module("metrics", metric, root).read
+
+
+def op(name: str, root: Path = ROOT):
+    """The module `benchmark/ops/<name>.py`: an entry a cell drives."""
+    return _module("ops", name, root)

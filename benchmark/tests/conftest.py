@@ -28,7 +28,7 @@ def tiny(name: str, root: Path = ROOT):
 
 @pytest.fixture
 def card():
-    """The CUDA card, or a skip where there is none."""
+    """The devices of a one-card cell, (cuda:0,), or a skip where there is no card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the program's kernels have no CPU mode")
-    return torch.device("cuda", 0)
+    return (torch.device("cuda", 0),)

@@ -16,14 +16,14 @@ import torch
 from benchmark import controls, run
 from benchmark.tests.conftest import CELLS, ROOT, tiny
 
-CPU = torch.device("cpu")
+ON_CPU = (torch.device("cpu"),)      # the devices of a one-card cell, on the CPU
 WINDOW_S = 6.0          # holds every sampled call at the CPU's pace, under load too
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_runs_correct(name):
     cell = tiny(name)
-    result, checks = run.run_cell(cell, 2**31 + 5, WINDOW_S, False, CPU, time.perf_counter())
+    result, checks = run.run_cell(cell, 2**31 + 5, WINDOW_S, False, ON_CPU, time.perf_counter())
     assert result["correct"], checks
     assert result["attempted"] >= 9 and result["failed"] == 0
     assert set(result["metrics"]) == {m["name"] for m in cell.end_to_end}
@@ -35,7 +35,7 @@ def test_cell_runs_correct(name):
 @pytest.mark.parametrize("name", CELLS)
 def test_planted_fault_is_not_correct(name, fault):
     cell = tiny(name)
-    result, checks = run.run_cell(cell, 99, WINDOW_S, False, CPU, time.perf_counter(), wrap=controls.FAULTS[fault])
+    result, checks = run.run_cell(cell, 99, WINDOW_S, False, ON_CPU, time.perf_counter(), wrap=controls.FAULTS[fault])
     assert not result["correct"] and result["failed"] == 0, checks
 
 
@@ -46,14 +46,14 @@ def test_fault_in_the_units_encoder_is_not_correct(name, fault):
     encoder at set-up, to the reference."""
     cell = tiny(name)
     with controls.units_fault(controls.FAULTS[fault]):
-        result, checks = run.run_cell(cell, 99, WINDOW_S, False, CPU, time.perf_counter())
+        result, checks = run.run_cell(cell, 99, WINDOW_S, False, ON_CPU, time.perf_counter())
     assert not result["correct"] and result["failed"] == 0, checks
     assert checks["pcm_diff_samples"]["value"] == 0           # the decoder itself is sound
 
 
 def test_traced_run_reads_its_layers():
     cell = tiny("batched.decode.drums")
-    result, _ = run.run_cell(cell, 1, 1.0, True, CPU, time.perf_counter())
+    result, _ = run.run_cell(cell, 1, 1.0, True, ON_CPU, time.perf_counter())
     assert {"idle_share.decode", "launches_per_call.decode"} <= set(result["metrics"])
     assert {"device_ops", "idle_gaps"} == set(result["breakdown"])
     assert "window_s" in result["device"] and "busy_s" in result["device"]
@@ -62,7 +62,7 @@ def test_traced_run_reads_its_layers():
 def test_nothing_loads_jax_or_the_jax_package():
     code = ("import time, torch; from benchmark import run; from benchmark.tests.conftest import tiny, CELLS\n"
             "for n in CELLS:\n"
-            "    run.run_cell(tiny(n), 3, 2.0, n.endswith('drums'), torch.device('cpu'), time.perf_counter())\n"
+            "    run.run_cell(tiny(n), 3, 2.0, n.endswith('drums'), (torch.device('cpu'),), time.perf_counter())\n"
             "print(run.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -114,10 +114,65 @@ def test_new_config_mix_and_metric_are_files_alone(tmp_path):
     code = ("import sys, time, torch, json; from pathlib import Path; from benchmark import run, spec\n"
             "c = spec.load('bias.encode.chords', Path('.').resolve())\n"
             "c.traffic.update(tracks=1, frames_per_track=48, chunk_frames=16)\n"
-            "r, k = run.run_cell(c, 8, 6.0, True, torch.device('cpu'), time.perf_counter())\n"
+            "r, k = run.run_cell(c, 8, 6.0, True, (torch.device('cpu'),), time.perf_counter())\n"
             "print(json.dumps([r['correct'], r['metrics']['calls_profiled']['value'], run.__file__]))")
     env = {"PYTHONPATH": f"{tmp_path}:{ROOT}", "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "2"}
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     correct, calls, where = json.loads(out.stdout.strip().splitlines()[-1])
     assert correct and calls == 6.0 and where.startswith(str(tmp_path)), out.stderr[-3000:]
+
+
+MESH_OP = '''"""The sharded encode chunk step over the cell's devices."""
+
+FAMILY = "encode"
+
+
+def inputs(config, pcm, devices):
+    return pcm
+
+
+def step(config, devices):
+    from benchmark import program
+    from carta1_tpu_torch import processor
+    from carta1_tpu_torch.parallel import sharding
+
+    opts, mesh = program.options(config), sharding.make_mesh(devices)
+    return lambda chunk, state: processor._encode_chunk_sharded(chunk, opts, state, mesh)
+'''
+
+
+def test_new_entry_over_two_devices_is_files_alone(tmp_path):
+    """A copy of the benchmark gains an entry of the package, the frames of
+    each call split over a mesh of two devices, and a cell that drives it,
+    by new files and new entries only; the cell is correct under the batched
+    encode's judge and reports its family's end-to-end metrics."""
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    b = tmp_path / "benchmark"
+    (b / "ops" / "encode_mesh.py").write_text(MESH_OP)
+    mix = json.loads((b / "traffic" / "album.encode.json").read_text())
+    mix["op"] = "encode_mesh"
+    (b / "traffic" / "album.encode_mesh.json").write_text(json.dumps(mix))
+    (b / "limits" / "mesh.encode.album.json").write_text((b / "limits" / "batched.encode.album.json").read_text())
+    bench["workloads"].append({"name": "mesh.encode.album", "config": "sp_stereo_batched",
+                               "traffic": "album.encode_mesh", "chips": 2, "why": "x"})
+    for m in bench["end_to_end"]:
+        if m["name"] in ("encode_fps", "encode_p95_ms"):
+            m["workloads"].append("mesh.encode.album")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    # "cpu" and "cpu:0" are two devices to the mesh: each takes half of every row's frames, rebuilds its
+    # boundary state from the halo, and the halves are gathered on the first; a window of 12 s, since the
+    # sharded step takes about twice the plain one's time and the sampled calls must come
+    code = ("import sys, time, torch, json; from pathlib import Path; from benchmark import run, spec\n"
+            "c = spec.load('mesh.encode.album', Path('.').resolve())\n"
+            "c.traffic.update(tracks=1, frames_per_track=48, chunk_frames=16)\n"
+            "mesh = (torch.device('cpu'), torch.device('cpu', 0))\n"
+            "r, k = run.run_cell(c, 2**31 + 17, 12.0, False, mesh, time.perf_counter())\n"
+            "print(json.dumps([r['correct'], sorted(r['metrics']), [k, r['failed']], run.__file__]))")
+    env = {"PYTHONPATH": f"{tmp_path}:{ROOT}", "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "2"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    correct, metrics, checks, where = json.loads(out.stdout.strip().splitlines()[-1])
+    assert correct, checks
+    assert metrics == ["encode_fps", "encode_p95_ms", "setup_s"] and where.startswith(str(tmp_path))

@@ -13,6 +13,7 @@ from benchmark import program, run, spec, traffic_gen
 from benchmark.tests.conftest import tiny
 
 CPU = torch.device("cpu")
+ON_CPU = (CPU,)           # the devices of a one-card cell, on the CPU
 HOST = {"encode": {"step_host_ms_per_call.encode"},
         "decode": {"step_host_ms_per_call.decode", "host_wait_ms_per_call.decode", "short_band_frames_per_call.decode"}}
 
@@ -24,7 +25,7 @@ def span_metrics(cell) -> set[str]:
 @pytest.mark.parametrize("name", ["batched.encode.album", "exact.encode.album", "batched.decode.drums"])
 def test_traced_run_reads_the_spans(name):
     cell = tiny(name)
-    result, _ = run.run_cell(cell, 2**31 + 11, 1.0, True, CPU, time.perf_counter())
+    result, _ = run.run_cell(cell, 2**31 + 11, 1.0, True, ON_CPU, time.perf_counter())
     got = result["metrics"]
     assert HOST[cell.op] <= set(got)
     assert all(got[m]["value"] > 0 for m in HOST[cell.op])
@@ -33,7 +34,7 @@ def test_traced_run_reads_the_spans(name):
 
 def test_short_band_frames_match_the_units():
     cell = tiny("batched.decode.drums")
-    result, _ = run.run_cell(cell, 7, 1.0, True, CPU, time.perf_counter())
+    result, _ = run.run_cell(cell, 7, 1.0, True, ON_CPU, time.perf_counter())
     with torch.no_grad():
         units = program.encode_track(cell.config, traffic_gen.make(cell.traffic, 7, CPU))
     # the traced stretch decodes each chunk of the track the same number of times
@@ -49,6 +50,6 @@ def test_no_spans_no_value(monkeypatch):
 
     monkeypatch.delattr(profiling, "spans")
     cell = tiny("batched.decode.album")
-    result, _ = run.run_cell(cell, 5, 1.0, True, CPU, time.perf_counter())
+    result, _ = run.run_cell(cell, 5, 1.0, True, ON_CPU, time.perf_counter())
     assert not span_metrics(cell) & set(result["metrics"])
     assert {"idle_share.decode", "launches_per_call.decode"} <= set(result["metrics"])

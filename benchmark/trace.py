@@ -2,12 +2,16 @@
 and the result's `breakdown` need.
 
 `torch.profiler` records the host's operations and every device
-operation (kernels, copies, sets) with their intervals.  From them:
-device busy = the union of the device intervals; each device
-operation's total time by name; the idle gaps between device intervals,
-each named by the innermost host operation that was running at its
-middle; and the host wall of the stretch, read on the host clock around
-calls that each end in a synchronise.
+operation (kernels, copies, sets) with their intervals and the card each
+ran on.  From them, card by card over the cell's cards: a card's busy
+time = the union of its own device intervals, and its idle gaps between
+them, each named by the innermost host operation that was running at its
+middle; then device busy = the mean of the cards' busy times, and the
+idle seconds per host operation summed over the cards.  Besides: each
+device operation's total time by name and the count of device
+operations, over every card; and the host wall of the stretch, read on
+the host clock around calls that each end in a synchronise of every
+card.  With one card, busy is the union of every device interval.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ RANGE = "bench.call"          # the range around each call; its device-side copy
 class Trace:
     calls: int
     wall_s: float
-    busy_s: float
+    busy_s: float                               # the mean over the cards of busy_s_by_card
+    busy_s_by_card: list[float]                 # each card's union of its device intervals, in card order
     device_ops: int
     device_by_name: dict[str, float]            # seconds per device operation name
     gaps_by_host: dict[str, float]              # idle seconds per host operation name
@@ -38,16 +43,17 @@ class Trace:
         return sum(s for k, s in self.device_by_name.items() if base_name(k) in names)
 
     def idle_pct(self) -> float:
-        """1 - device busy (the union of every kernel, copy and set
-        interval) / the host wall of the profiled whole calls, percent."""
+        """1 - device busy (per card the union of every kernel, copy and
+        set interval, averaged over the cards) / the host wall of the
+        profiled whole calls, percent: the cards' mean idle share."""
         return 100.0 * (1.0 - self.busy_s / self.wall_s)
 
     def busy_ms_per_call(self) -> float:
         return 1e3 * self.busy_s / self.calls
 
     def launches_per_call(self) -> float:
-        """Device operations (kernels, copies, sets) per call: the launches
-        of the chunk step's host dispatch."""
+        """Device operations (kernels, copies, sets) on every card per call:
+        the launches of the chunk step's host dispatch."""
         return self.device_ops / self.calls
 
     def breakdown(self) -> dict:
@@ -108,9 +114,28 @@ def name_gaps(idle: list[tuple[float, float]], host: list[tuple[float, float, st
     return dict(out)
 
 
-def profile(call, n: int, sync) -> Trace:
+def per_card(device: list[tuple[int, float, float]], host: list[tuple[float, float, str]],
+             cards: list[int]) -> tuple[list[float], dict[str, float]]:
+    """(each card's busy seconds, the idle seconds per host operation summed
+    over the cards) of device intervals [(card, start, end)] within the
+    host's `RANGE` calls, for the card indices `cards` (a card with no
+    interval is idle throughout)."""
+    calls = [(s, e) for s, e, name in host if name == RANGE]
+    start = min(s for s, _ in calls) if calls else 0.0
+    end = max(e for _, e in calls) if calls else 0.0
+    busy, idle = [], collections.defaultdict(float)
+    for card in cards:
+        merged = union([(s, e) for c, s, e in device if c == card])
+        busy.append(sum(e - s for s, e in merged))
+        for name, seconds in name_gaps(gaps(merged, start, end), host).items():
+            idle[name] += seconds
+    return busy, dict(idle)
+
+
+def profile(call, n: int, sync, cards: list[int]) -> Trace:
     """Run `call(j)` for j in range(n) under the profiler, each inside a
-    `RANGE` range and ending in `sync()`; reduce the trace."""
+    `RANGE` range and ending in `sync()`; reduce the trace over the card
+    indices `cards`."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     outputs = []
     with torch.profiler.profile(activities=acts) as prof:
@@ -128,14 +153,10 @@ def profile(call, n: int, sync) -> Trace:
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             if ev.name == RANGE:
                 continue
-            dev_iv.append((s, e))
+            dev_iv.append((ev.device_index, s, e))
             by_name[ev.name] += e - s
         else:
             host_iv.append((s, e, ev.name))
-    busy = union(dev_iv)
-    calls = [(s, e) for s, e, name in host_iv if name == RANGE]
-    start = min(s for s, _ in calls) if calls else 0.0
-    end = max(e for _, e in calls) if calls else 0.0
-    idle = gaps(busy, start, end)
-    return Trace(calls=n, wall_s=wall, busy_s=sum(e - s for s, e in busy), device_ops=len(dev_iv),
-                 device_by_name=dict(by_name), gaps_by_host=name_gaps(idle, host_iv), outputs=outputs)
+    busy, idle = per_card(dev_iv, host_iv, cards)
+    return Trace(calls=n, wall_s=wall, busy_s=sum(busy) / len(busy), busy_s_by_card=busy, device_ops=len(dev_iv),
+                 device_by_name=dict(by_name), gaps_by_host=idle, outputs=outputs)
