@@ -7,7 +7,8 @@ an f32 store where the reference stores into a Float32Array, as PyTorch
 ops that each round once, or a hand kernel that repeats it:
 
   * QMF analysis tree: `transforms.qmf_analysis_stream` twice (f64 taps in
-    the reference's order), the high band through the 39-sample delay;
+    the reference's order, kernel K8), the high band through the 39-sample
+    delay;
   * block modes: the FFT magnitude of every band (kernel K6) and
     `transient.transient_score` (left-to-right f64 sums) against the
     thresholds of `EncoderOptions.band_thresholds`;
@@ -57,12 +58,13 @@ def _windows(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return w, w.flip(0)
 
 
-def analysis_bands(pcm: torch.Tensor, state: dict) -> tuple[list, dict]:
+def analysis_bands(pcm: torch.Tensor, state: dict, plain: bool = False) -> tuple[list, dict]:
     """Two-level QMF tree (encoder.js:57-96): [..., F, 512] -> bands
-    [..., F, 128], [..., F, 128], [..., F, 256] and the new delays."""
+    [..., F, 128], [..., F, 128], [..., F, 256] and the new delays; K8 for
+    the taps of each level (its plain version with `plain=True`)."""
     lead, nframes = pcm.shape[:-2], pcm.shape[-2]
-    low1, high1, low_d = qmf_analysis_stream(pcm.reshape(*lead, -1), state["qmf_low_delay"])
-    low2, mid2, mid_d = qmf_analysis_stream(low1, state["qmf_mid_delay"])
+    low1, high1, low_d = qmf_analysis_stream(pcm.reshape(*lead, -1), state["qmf_low_delay"], plain=plain)
+    low2, mid2, mid_d = qmf_analysis_stream(low1, state["qmf_mid_delay"], plain=plain)
     band2, high_d = delay_stream(high1.reshape(*lead, nframes, 256), state["qmf_high_delay"])
     bands = [low2.reshape(*lead, nframes, 128), mid2.reshape(*lead, nframes, 128), band2]
     return bands, {"qmf_low_delay": low_d, "qmf_mid_delay": mid_d, "qmf_high_delay": high_d}
@@ -138,7 +140,7 @@ def exact_analysis(pcm: torch.Tensor, state: dict, options: EncoderOptions, plai
     [..., F], new state)."""
     with profiling.span("carta1.encode.analysis"):
         with profiling.span("carta1.encode.qmf"):
-            bands, new_state = analysis_bands(pcm, state)
+            bands, new_state = analysis_bands(pcm, state, plain)
         with profiling.span("carta1.encode.transient"):
             modes, scores, spec_state = _block_modes(bands, options.band_thresholds, state, plain)
         with profiling.span("carta1.encode.mdct"):
@@ -152,7 +154,7 @@ def exact_analysis(pcm: torch.Tensor, state: dict, options: EncoderOptions, plai
 def exact_encode_step(pcm: torch.Tensor, state: dict, options: EncoderOptions,
                       plain: bool = False) -> tuple[FrameData, dict]:
     """Exact batched encode of f32 [..., F, 512] (F > 0) -> (FrameData, state).
-    `plain=True` runs K5's and K6's plain versions on any device."""
+    `plain=True` runs K5's, K6's and K8's plain versions on any device."""
     bfu, sf, modes, _, new_state = exact_analysis(pcm, state, options, plain)
     with profiling.span("carta1.encode.allocate"):
         wl = allocate_bits_sf(sf, options.allocation_bias, plain)

@@ -12,13 +12,13 @@ On the card the transforms run on the hand kernels that compute them on
 the codec's paths: `mdct_js` / `mdct` on K6 (`ops/fftjs_kernels.py`),
 `imdct_js` / `imdct` on K1 (`ops/imdct_kernels.py`) and the decoder's
 signed gather of its middle half (`ops/exact_decode.imdct_exact`), and
-`qmf_synthesis_stream` on K2 (`ops/qmf_kernels.py`).  A transform's scale
-is a sincos table the kernel reads, so any scale runs on the same kernel;
-the sizes are the reference's instances (64, 256, 512; mdct.js:215-221).
+`qmf_synthesis_stream` on K2 and `qmf_analysis_stream` on K8 (both
+`ops/qmf_kernels.py`).  A transform's scale is a sincos table the kernel
+reads, so any scale runs on the same kernel; the sizes are the
+reference's instances (64, 256, 512; mdct.js:215-221).
 For a CPU tensor, or with `plain=True`, the kernels' plain versions run:
 separate PyTorch ops, each of which rounds once.  `overlap_add_js` is the
-decoder's `exact_decode.overlap_add_exact` and `qmf_analysis_stream` the
-encoder's 24 taps in order; neither has a kernel.
+decoder's `exact_decode.overlap_add_exact`, which has no kernel.
 
 `mdct_js_plain` and `mdct_js_masked_plain` are the plain versions of
 kernel K6's MDCT entries; `mdct_masked` is the encoder's short MDCT.
@@ -29,6 +29,7 @@ Parity: codec/transforms/mdct.js, codec/transforms/qmf.js.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -37,7 +38,7 @@ from carta1_tpu_torch import constants as C
 from carta1_tpu_torch.gold.fftjs import fft_js
 from carta1_tpu_torch.ops.common import halo_prefix
 from carta1_tpu_torch.ops.exact_decode import imdct_exact, overlap_add_exact
-from carta1_tpu_torch.ops.qmf_kernels import qmf_taps, qmf_taps_plain
+from carta1_tpu_torch.ops.qmf_kernels import qmf_analysis_taps, qmf_analysis_taps_plain, qmf_taps, qmf_taps_plain
 from carta1_tpu_torch.tables import IMDCT_SCALES, MDCT_SCALES, imdct_basis, mdct_basis, mdct_tables
 
 __all__ = [
@@ -180,24 +181,32 @@ def mdct_masked(x: torch.Tensor, active: torch.Tensor, plain: bool = False) -> t
     return out.reshape(*x.shape[:-1], 32)
 
 
-def qmf_analysis_stream(signal: torch.Tensor, delay: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def qmf_analysis_stream(signal: torch.Tensor, delay: torch.Tensor, *,
+                        plain: bool = False) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-stream QMF analysis (qmf.js:19-50), chained over all frames.
 
     signal: f32 [..., N]; delay: f32 [..., 46] (the stream's carry).
     Returns (low [..., N/2], high [..., N/2], new delay [..., 46]).  The
     even and odd sums run over the 24 taps in the reference's order, in
-    f64, one rounding per multiply and per add, vectorized over every
-    output sample; low = even + odd and high = even - odd are stored f32."""
-    work = torch.cat([delay, signal], dim=-1)
-    n_out = signal.shape[-1] >> 1
-    wv = work.double()
-    even = torch.zeros((*work.shape[:-1], n_out), dtype=torch.float64, device=work.device)
-    odd = torch.zeros_like(even)
-    for j in range(24):
-        e0, o0 = 47 - 2 * j, 46 - 2 * j
-        even += wv[..., e0:e0 + 2 * n_out - 1:2] * float(C.QMF_EVEN[j])
-        odd += wv[..., o0:o0 + 2 * n_out - 1:2] * float(C.QMF_ODD[j])
-    return (even + odd).float(), (even - odd).float(), work[..., -C.QMF_DELAY:]
+    f64, one rounding per multiply and per add, for every output sample
+    (kernel K8, its plain version for a CPU tensor or with `plain=True`);
+    low = even + odd and high = even - odd are stored f32.  The new delay
+    is the last 46 samples of delay and signal together (a view of
+    `signal` where N >= 46)."""
+    _check(signal, "qmf_analysis_stream")
+    _check(delay, "qmf_analysis_stream")
+    lead, n = signal.shape[:-1], signal.shape[-1]
+    if delay.shape != (*lead, C.QMF_DELAY):
+        raise ValueError(f"qmf_analysis_stream: need signal [..., N] and delay [..., {C.QMF_DELAY}], got "
+                         f"{tuple(signal.shape)} and {tuple(delay.shape)}")
+    rows = math.prod(lead)
+    taps = qmf_analysis_taps_plain if plain else qmf_analysis_taps
+    low, high = taps(signal.reshape(rows, n).contiguous(), delay.reshape(rows, C.QMF_DELAY).contiguous())
+    if n >= C.QMF_DELAY:
+        new_delay = signal[..., n - C.QMF_DELAY:]
+    else:
+        new_delay = torch.cat([delay[..., n:], signal], dim=-1)
+    return low.reshape(*lead, n >> 1), high.reshape(*lead, n >> 1), new_delay
 
 
 def qmf_synthesis_stream(low: torch.Tensor, high: torch.Tensor, delay: torch.Tensor,

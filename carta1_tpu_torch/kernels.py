@@ -43,7 +43,7 @@ NVCC_FLAGS = (
 
 # kernel name -> (library, what it replaces in the JAX package: a Pallas
 # kernel, for K4 and K7 the whole function that XLA compiled into one
-# program, for K5 and K6 the exact engine's NumPy host code).  One library
+# program, for K5, K6 and K8 the exact engine's NumPy host code).  One library
 # per source.
 KERNELS = {
     "imdct_exact_64": ("imdct_exact", "carta1_tpu/ops/exact_fft_pallas.py:214"),
@@ -61,6 +61,7 @@ KERNELS = {
     "fft_js_mdct_512": ("fft_js", "carta1_tpu/gold/transforms.py:42"),
     "fft_js_spectrum_128": ("fft_js", "carta1_tpu/gold/fftjs.py:94"),
     "fft_js_spectrum_256": ("fft_js", "carta1_tpu/gold/fftjs.py:94"),
+    "qmf_analysis": ("qmf_analysis", "carta1_tpu/gold/transforms.py:181"),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in KERNELS.values()}))
 

@@ -1,8 +1,9 @@
 """Seeded inputs for the kernels and the encoder checks.
 
-Edge inputs for the tiled kernels K1 (IMDCT), K2 (QMF taps) and K4 (the
-allocators, with NaN and inf among their inputs), the plain sweep's
-candidates, NumPy and heap references of the allocators, the test signals
+Edge inputs for the tiled kernels K1 (IMDCT), K2 and K8 (QMF taps) and
+K4 (the allocators; K4's and K8's with NaN and inf among their inputs),
+the plain sweep's candidates, NumPy and heap references of the
+allocators, the test signals
 of the encode-quality checks, the amplitudes around every scale-factor
 table value, and frames of every BFU amount for the bitstream.
 
@@ -13,7 +14,10 @@ rows; the values are the ones a tiling or a rounding can get wrong: +0,
 -0, f32 denormals, magnitudes whose f64 result rounds to inf at the final
 f32 store, and a single nonzero sample at either end of a row.  No row
 of `edge_rows` overflows before its last rounding, so no NaN appears and
-bitwise comparison stays meaningful.
+bitwise comparison stays meaningful.  K8's inputs hold NaN and inf too,
+and are compared word for word against the plain version on the CPU: its
+NaN words are the reference's where two NaNs meet (on the card, ATen's
+add keeps the other one).
 """
 
 from __future__ import annotations
@@ -114,6 +118,33 @@ def qmf_edge_work(frames: int, s: int, seed: int) -> np.ndarray:
     else:
         halo = edge_rows(frames, QMF_DELAY, seed + 5, F32_MAX)
     return np.concatenate([halo, merged], axis=1)
+
+
+def qmf_analysis_edge_inputs(rows: int, n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(signal f32 [rows, n], delay f32 [rows, 46]) for `qmf_analysis_taps`.
+
+    Signal and delay follow `edge_rows` with different seeds.  In every
+    other row of the last pattern, the first included, [delay | signal] is
+    +-F32_MAX with the signs of the analysis window, so that at every 24th
+    output the even and the odd sum are each about 1.8 * F32_MAX in f64 and
+    their sum rounds to inf; every third row holds +inf, -inf and a NaN at
+    random places (an output whose window holds one is not finite)."""
+    from carta1_tpu_torch.constants import QMF_DELAY, QMF_EVEN, QMF_ODD
+
+    rng = np.random.default_rng(seed + 7)
+    signal = edge_rows(rows, n, seed, F32_MAX) if n else np.zeros((rows, 0), np.float32)
+    delay = edge_rows(rows, QMF_DELAY, seed + 5, F32_MAX)
+    # output 0's tap j reads sample pair 23 - j: ODD[j]'s sample, then EVEN[j]'s
+    signs = np.where(np.stack([QMF_ODD, QMF_EVEN], axis=-1)[::-1].reshape(-1) < 0, -1.0, 1.0)
+    for r in range(rows):
+        if (r + seed) % PATTERNS == PATTERNS - 1 and (r // PATTERNS) % 2 == 0:
+            work = (F32_MAX * np.resize(signs, QMF_DELAY + n)).astype(np.float32)
+            delay[r], signal[r] = work[:QMF_DELAY], work[QMF_DELAY:]
+        if (r + seed) % 3 == 1:
+            work = np.concatenate([delay[r], signal[r]])
+            work[rng.integers(0, work.size, 3)] = np.array([np.inf, -np.inf, np.nan], np.float32)
+            delay[r], signal[r] = work[:QMF_DELAY], work[QMF_DELAY:]
+    return signal, delay
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,8 @@ Phases (each raises on failure; nothing is caught):
   2. build: compiles every kernel (K1 IMDCT at sizes 64/256/512, K2 QMF
      taps, K3 field read, K4 the two bit allocators, K5 the reference's
      heap allocator, K6 the fft.js forward MDCT and magnitude spectrum, K7
-     the sound-unit pack) and the rate probe from carta1_tpu_torch/csrc,
-     all nvcc runs at once;
+     the sound-unit pack, K8 the exact encoder's QMF analysis taps) and the
+     rate probe from carta1_tpu_torch/csrc, all nvcc runs at once;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the first stereo 8192-frame chunk of the transcode gives it,
      and on edge inputs (batches around a block's tile, small widths, +0,
@@ -18,7 +18,10 @@ Phases (each raises on failure; nothing is caught):
      NaN and inf coefficients, silent and all-63 frames, exact ties across
      BFUs, plateaus of the hull, each at biases 0.7, 1.0 and 2.0; for K7
      testing.pack_edge_cases, every BFU amount, n_bfu per frame and outside
-     [0, 52], fields past bit 1695 and outside their ranges): 0
+     [0, 52], fields past bit 1695 and outside their ranges; K8 at an
+     exact-cell call's shapes, 16 rows x 8192 frames, and on
+     testing.qmf_analysis_edge_inputs, NaN and inf among them, against the
+     plain version on the CPU, whose NaN words are the reference's): 0
      differing words allowed; kernel, plain and library-call times, the
      time of an empty launch, and the kernel's bound: the largest of its
      bytes at the memory rate, its arithmetic at the data sheet's rate and,
@@ -176,17 +179,21 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F64_S = 17e12
 PEAK_F32_S = 33.5e12
 # which path's launch counts hold each kernel: K4's reference allocator runs
-# in phase 14 (allocator="reference"), the exact engine's K5 and K6 in phase
+# in phase 14 (allocator="reference"), the exact engine's K5, K6 and K8 in phase
 # 11 (engine="exact"), every other kernel on the main path (phase 6)
 EXACT_KERNELS = ("alloc_heap", "fft_js_mdct_64", "fft_js_mdct_256", "fft_js_mdct_512", "fft_js_spectrum_128",
-                 "fft_js_spectrum_256")
+                 "fft_js_spectrum_256", "qmf_analysis")
 PATHS = {"alloc_reference": "phase 14", **{k: "phase 11" for k in EXACT_KERNELS}}
 PACK_FRAMES = 2048         # frames of each BFU amount in phase 16's checks
 STRESS_MINUTES = 10        # phase 15's stream_stress, cut from its 60 to keep the phase near 90 s
 
 
-def _mismatch(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
-    """(differing 32-bit words, treating +0 == -0; max |a - b|)."""
+def _mismatch(a, b) -> tuple[int, float]:
+    """(differing 32-bit words, treating +0 == -0; max |a - b|) of two
+    tensors or two tuples of them."""
+    if isinstance(a, tuple):
+        parts = [_mismatch(x, y) for x, y in zip(a, b, strict=True)]
+        return sum(m for m, _ in parts), max((e for _, e in parts), default=0.0)
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"shape/dtype differ: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
     if a.dtype == torch.float32:
@@ -986,8 +993,13 @@ def gold_surface_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor
         lows, d1 = transforms.qmf_synthesis_stream(low, mid, zero, p)
         return (lows, d1, *transforms.qmf_synthesis_stream(lows, high, zero, p))
 
+    def analysis(p):
+        low1, high1, d1 = transforms.qmf_analysis_stream(pcm0.reshape(nch, -1), zero, plain=p)
+        return (low1, high1, d1, *transforms.qmf_analysis_stream(low1, zero, plain=p))
+
     cases += [
         ("qmf_synthesis_stream", synthesis),
+        ("qmf_analysis_stream", analysis),
         ("allocate_bits", lambda p: coding.allocate_bits(bfu, sizes, bias, p)),
         ("allocate_bits_frame", lambda p: coding.allocate_bits_frame(bfu[1], sizes, bias, p)),
         ("allocate_bits_sweep", lambda p: coding.allocate_bits_sweep(sf, sizes, bias, p)),
@@ -1002,7 +1014,7 @@ def gold_surface_phase(pcm16: np.ndarray, units: torch.Tensor, pcm: torch.Tensor
         walls[name], got[name] = _timed(lambda: call(False), dev)
     launches = dict(kernels.LAUNCHES)
     path = ("imdct_exact_64", "imdct_exact_256", "imdct_exact_512", "qmf_taps", "alloc_reference", "alloc_heap",
-            "fft_js_mdct_64", "fft_js_mdct_256", "fft_js_mdct_512")
+            "fft_js_mdct_64", "fft_js_mdct_256", "fft_js_mdct_512", "qmf_analysis")
     missing = [k for k in path if launches[k] == 0]
     if dev.type == "cuda" and missing:
         raise AssertionError(f"gold surface: launched no {missing}: {launches}")
@@ -1484,10 +1496,10 @@ def main() -> int:
     rows = []
 
     def check(kname, cases, plain_fn, kernel_fn, nbytes, ops, reps, library=None, edge_cases=(), rate=PEAK_F64_S,
-              conversions=0):
+              conversions=0, edge_plain_fn=None):
         bad, err = 0, 0.0
         for case in edge_cases:
-            m, _ = _mismatch(kernel_fn(*case), plain_fn(*case))
+            m, _ = _mismatch(kernel_fn(*case), (edge_plain_fn or plain_fn)(*case))
             if m:
                 raise AssertionError(f"{kname}: {m} words differ from the plain version on the edge input "
                                      f"{[tuple(t.shape) if isinstance(t, torch.Tensor) else t for t in case]}")
@@ -1555,6 +1567,29 @@ def main() -> int:
           edge_cases=[(torch.from_numpy(testing.qmf_edge_work(b, s, sd)).to(dev),)
                       for s in (2, 7, 128, 256) for b, sd in testing.edge_cases(qmf_kernels.tile_rows(s))]
           + [(torch.from_numpy(testing.qmf_edge_work(5, 611, 0)).to(dev),)])      # more than one column tile
+
+    # K8, the exact encoder's analysis taps, at an exact-cell call's shapes: 16 rows of 8,192 frames, both tree
+    # levels (the second reads the first's low band); 98 f64 operations an output pair, each sample read once and
+    # both bands written once
+    ana_rows = 16
+    levels = [tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.3).to(dev)
+                    for shape in ((ana_rows, n), (ana_rows, C.QMF_DELAY))) for n in (CHUNK * 512, CHUNK * 256)]
+    analysis = torch.zeros((2, 1, 48), dtype=torch.float64, device=dev)     # conv1d's window at work[2i + t]
+    analysis[0, 0, 1::2] = torch.from_numpy(QMF_EVEN[::-1].astype(np.float64))
+    analysis[1, 0, 0::2] = torch.from_numpy(QMF_ODD[::-1].astype(np.float64))
+    works_a = [torch.cat([d, x], dim=1).double().unsqueeze(1) for x, d in levels]
+    print("qmf_analysis: library_ms is an f64 conv1d of [delay | signal] with the even and odd windows (a speed "
+          "reference only: it sums in another order); the edge inputs against the plain version on the CPU, the "
+          "reference's NaN words (where two NaNs meet, ATen's add on the card, an FMA of a + 1 * b, keeps the other)")
+    check("qmf_analysis", levels, qmf_kernels.qmf_analysis_taps_plain, qmf_kernels.qmf_analysis_taps,
+          sum(x.numel() * 4 + d.numel() * 4 + (x.shape[1] // 2) * ana_rows * 8 for x, d in levels) + 48 * 8,
+          sum(ana_rows * (x.shape[1] // 2) * 98 for x, _ in levels), reps=50,
+          library=lambda: [torch.nn.functional.conv1d(w, analysis, stride=2) for w in works_a],
+          edge_cases=[tuple(torch.from_numpy(a).to(dev) for a in testing.qmf_analysis_edge_inputs(b, n, sd))
+                      for n in (0, 1, 7, 45, 47, 300, 2 * 1025 + 1, 2 * 4096 + 77)
+                      for b, sd in testing.edge_cases(qmf_kernels.analysis_tile(n)[0])],
+          edge_plain_fn=lambda s, d: tuple(t.to(dev) for t in qmf_kernels.qmf_analysis_taps_plain(s.cpu(), d.cpu())))
+    del levels, works_a
 
     reads = bitpack.field_reads(chunk.reshape(-1, 212))
     read_bytes = reads[0][0].numel() * 4 + sum(r[1].numel() * 12 for r in reads)

@@ -43,7 +43,8 @@ import carta1_tpu_torch as port
 from carta1_tpu_torch import EncoderOptions, cli, testing
 from carta1_tpu_torch.gold import coding, encoder, fftjs, transforms, transient
 from carta1_tpu_torch.io import streams, wav
-from carta1_tpu_torch.ops import fftjs_kernels, heap_kernels
+from carta1_tpu_torch import constants as C
+from carta1_tpu_torch.ops import fftjs_kernels, heap_kernels, qmf_kernels
 from carta1_tpu_torch.ops.bitpack import pack_frames
 from carta1_tpu_torch.ops.coding import group_bfus
 from carta1_tpu_torch.ops.pcm import float_to_int16
@@ -133,6 +134,130 @@ def test_qmf_analysis_stream_bitwise_gold():
     want = jax_transforms.qmf_analysis_stream(signal, delay)
     got = transforms.qmf_analysis_stream(_t(signal), _t(delay))
     assert all(_same(g.numpy(), w) for g, w in zip(got, want))
+    got = transforms.qmf_analysis_stream(_t(signal), _t(delay), plain=True)
+    assert all(_same(g.numpy(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 45, 46, 47, 2 * 1025 + 1])
+def test_qmf_analysis_stream_lengths_bitwise_gold(n):
+    """Rows of every length K8's wrapper takes: odd N (the last sample only
+    enters the delay), N shorter than the delay, N < 2 (no output); three
+    rows, each behind a delay of its own; with and without `plain`."""
+    signal, delay = testing.qmf_analysis_edge_inputs(3, n, n)
+    with np.errstate(over="ignore", invalid="ignore"):                    # inf and NaN are inputs here
+        want = [np.stack(w) for w in zip(*(jax_transforms.qmf_analysis_stream(s, d) for s, d in zip(signal, delay)))]
+    for plain in (False, True):
+        got = transforms.qmf_analysis_stream(_t(signal), _t(delay), plain=plain)
+        assert all(_same(g.numpy(), w) for g, w in zip(got, want)), plain
+
+
+def test_qmf_analysis_stream_chunks_equal_one_call():
+    """A stream cut into chunks of even lengths (one shorter than the delay)
+    gives the whole stream's bands and new delay; zero rows give empty
+    bands."""
+    rng = np.random.default_rng(8)
+    signal = (rng.standard_normal((2, 3 * 512 + 40)) * 0.3).astype(np.float32)
+    delay = (rng.standard_normal((2, 46)) * 0.1).astype(np.float32)
+    low, high, last = transforms.qmf_analysis_stream(_t(signal), _t(delay))
+    parts, d = [], _t(delay)
+    for a, b in ((0, 20), (20, 532), (532, signal.shape[1])):
+        lo, hi, d = transforms.qmf_analysis_stream(_t(signal[:, a:b]), d)
+        parts.append((lo, hi))
+    assert _same(torch.cat([p[0] for p in parts], dim=-1).numpy(), low.numpy())
+    assert _same(torch.cat([p[1] for p in parts], dim=-1).numpy(), high.numpy())
+    assert _same(d.numpy(), last.numpy())
+    empty = transforms.qmf_analysis_stream(torch.zeros(0, 512), torch.zeros(0, 46))
+    assert [tuple(t.shape) for t in empty] == [(0, 256), (0, 256), (0, 46)]
+
+
+def _k8_emulation(signal: np.ndarray, delay: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """K8's thread-to-data map (`csrc/qmf_analysis.cu`), emulated with its
+    f64 operations as PyTorch ops on the CPU (NumPy's adds keep other NaN
+    words where two NaNs meet): every block's padded tile filled from
+    [delay | signal] (NaN where the kernel copies nothing), each thread's
+    walk over its window from the last sample pair down, the bands written
+    through the tile (each slot once) and stored.  Returns (low, high)
+    [B, N // 2]."""
+    threads, pairs, taps = qmf_kernels.THREADS, qmf_kernels.PAIRS, 24
+    batch, n = signal.shape
+    n_out = n // 2
+    low, high = np.full((batch, n_out), np.nan, np.float32), np.full((batch, n_out), np.nan, np.float32)
+    tile_rows, tile_pairs = qmf_kernels.analysis_tile(n)
+    segs = tile_pairs // pairs
+    padded = lambda k: 2 * k + 2 * (k // pairs)                          # noqa: E731
+    row_len = padded(tile_pairs + taps - 1)
+    row_len += 0 if (row_len // 2) % 2 else 2
+    half = tile_pairs + segs
+    assert 2 * half <= row_len and tile_rows * row_len * 4 <= 36 * 1024
+    work = np.concatenate([delay, signal], axis=1)
+    even_t, odd_t = C.QMF_EVEN.astype(np.float64).tolist(), C.QMF_ODD.astype(np.float64).tolist()
+    for b0 in range(0, batch, tile_rows):
+        for c0 in range(0, n_out, tile_pairs):
+            rows, cols = min(tile_rows, batch - b0), min(tile_pairs, n_out - c0)
+            tile = np.full((tile_rows, row_len), np.nan, np.float32)
+            k = np.arange(2 * (cols + taps - 1))
+            tile[:rows, padded(k >> 1) + (k & 1)] = work[b0:b0 + rows, 2 * c0 + k]
+            t = np.arange(threads)
+            r, seg = t // segs, t % segs
+            active = (r < rows) & (seg * pairs < cols)
+            r, base = r[active], padded(seg[active] * pairs)
+            even = torch.zeros((pairs, r.size), dtype=torch.float64)
+            odd = torch.zeros_like(even)
+            for m in range(pairs + taps - 2, -1, -1):
+                o = torch.from_numpy(tile[r, base + padded(m)]).double()
+                e = torch.from_numpy(tile[r, base + padded(m) + 1]).double()
+                for p in range(pairs):
+                    j = taps - 1 + p - m
+                    if 0 <= j < taps:
+                        even[p] = even[p] + e * even_t[j]
+                        odd[p] = odd[p] + o * odd_t[j]
+            written = np.zeros((tile_rows, row_len), int)
+            out_at = seg[active] * pairs + seg[active]                          # padded_out(seg * pairs)
+            for p in range(pairs):
+                np.add.at(written, (r, out_at + p), 1)
+                np.add.at(written, (r, out_at + half + p), 1)
+                tile[r, out_at + p] = (even[p] + odd[p]).float().numpy()
+                tile[r, out_at + half + p] = (even[p] - odd[p]).float().numpy()
+            assert written.max() <= 1
+            kk = np.arange(cols)
+            at = kk + kk // pairs
+            low[b0:b0 + rows, c0:c0 + cols] = tile[:rows, at]
+            high[b0:b0 + rows, c0:c0 + cols] = tile[:rows, at + half]
+    return low, high
+
+
+@pytest.mark.parametrize("n", [1, 6, 45, 47, 300, 2 * 1030 + 1, 2 * 2200])
+def test_qmf_analysis_kernel_emulation_equals_plain(n):
+    """K8's map on batches around a block's rows (1, 2, one short of a
+    block, one over, several blocks) and widths of one thread's run, short
+    of the delay, a ragged last tile and more than one column tile: the
+    plain version's bands, word for word; every slot of the tile that an
+    output reads was copied."""
+    tile_rows, _ = qmf_kernels.analysis_tile(n)
+    for batch in sorted({1, 2, max(tile_rows - 1, 1), tile_rows + 1, 2 * tile_rows + 3}):
+        signal, delay = testing.qmf_analysis_edge_inputs(batch, n, n + batch)
+        low, high = _k8_emulation(signal, delay)
+        want = qmf_kernels.qmf_analysis_taps_plain(_t(signal), _t(delay))
+        assert _same(low, want[0].numpy()) and _same(high, want[1].numpy()), batch
+
+
+def test_qmf_analysis_taps_rejects_bad_inputs():
+    """K8's wrapper takes f32 [B, N] and [B, 46], contiguous, one device."""
+    bad = [
+        (torch.zeros(2, 64, dtype=torch.float64), torch.zeros(2, 46, dtype=torch.float64)),
+        (torch.zeros(2, 64), torch.zeros(2, 45)),
+        (torch.zeros(2, 64), torch.zeros(3, 46)),
+        (torch.zeros(64, 2).T, torch.zeros(2, 46)),
+        (torch.zeros(2, 64), torch.zeros(46, 2).T),
+        (torch.zeros(64), torch.zeros(46)),
+    ]
+    for signal, delay in bad:
+        with pytest.raises(ValueError):
+            qmf_kernels.qmf_analysis_taps(signal, delay)
+    with pytest.raises(ValueError, match="f32"):
+        transforms.qmf_analysis_stream(torch.zeros(2, 64, dtype=torch.float64), torch.zeros(2, 46))
+    with pytest.raises(ValueError, match="delay"):
+        transforms.qmf_analysis_stream(torch.zeros(2, 64), torch.zeros(2, 40))
 
 
 def test_transient_score_within_rtol_and_modes_exact():
@@ -306,7 +431,7 @@ def test_exact_modules_use_no_fused_or_reordered_ops():
     banned = {"addcmul", "addcdiv", "lerp", "addmm", "baddbmm", "addbmm", "addmv", "fma", "sum", "cumsum", "nansum",
               "mean", "matmul", "mm", "bmm", "einsum", "dot", "tensordot", "conv1d", "linear"}
     paths = [os.path.join(GOLD_DIR, n) for n in sorted(os.listdir(GOLD_DIR)) if n.endswith(".py")]
-    paths.append(heap_kernels.__file__)
+    paths += [heap_kernels.__file__, qmf_kernels.__file__]
     for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read())

@@ -40,6 +40,15 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
+def _same_words_as_plain_on_the_cpu(signal: torch.Tensor, delay: torch.Tensor, low: torch.Tensor,
+                                     high: torch.Tensor) -> bool:
+    """K8's bands against its plain version on the CPU, word for word.  The
+    CPU's words are the reference's, NaNs included; on the card ATen's add
+    is an FMA of a + 1 * b, which keeps the other NaN where two meet."""
+    want = qmf_kernels.qmf_analysis_taps_plain(signal.cpu(), delay.cpu())
+    return all(torch.equal(g.cpu().view(torch.int32), w.view(torch.int32)) for g, w in zip((low, high), want))
+
+
 def _spectra(rows, cols, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((rows, cols)) * np.exp2(rng.integers(-10, 4, (rows, cols)))
@@ -416,6 +425,71 @@ def test_gold_imdct_js_and_qmf_synthesis_stream_on_the_card(card):
         parts.append(o)
     assert _same_bits(torch.cat(parts, dim=-1), out) and _same_bits(d, new_delay)
     assert kernels.LAUNCHES["imdct_exact_512"] and kernels.LAUNCHES["qmf_taps"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 2, 7, 45, 46, 47, 300, 2 * 1025 + 1, 2 * 4096 + 77])
+def test_qmf_analysis_kernel_edge_inputs_match_plain(card, n):
+    """K8 against its plain version: batches around a block's rows and zero
+    rows; odd N, N shorter than the delay, N < 2 (nothing launched), a
+    ragged last column tile; +-0, denormals, +-inf, NaN, +-F32_MAX rows whose
+    sums overflow, each behind a nonzero delay of its own.  0 differing
+    words from the plain version on the CPU; one launch a call that has
+    outputs."""
+    tile_rows, _ = qmf_kernels.analysis_tile(n)
+    for batch, seed in testing.edge_cases(tile_rows) + [(0, 0)]:
+        signal, delay = (torch.from_numpy(a).to(card) for a in testing.qmf_analysis_edge_inputs(batch, n, seed))
+        before = kernels.LAUNCHES["qmf_analysis"]
+        low, high = qmf_kernels.qmf_analysis_taps(signal, delay)
+        assert kernels.LAUNCHES["qmf_analysis"] == before + (batch > 0 and n >= 2), (batch, seed)
+        assert _same_words_as_plain_on_the_cpu(signal, delay, low, high), (batch, seed)
+
+
+@pytest.mark.cuda
+def test_qmf_analysis_kernel_at_the_exact_cell_shape(card):
+    """Both tree levels of one exact-encode call of 16 rows x 8,192 frames,
+    on random and edge rows: 0 differing words from the plain version on
+    the CPU."""
+    rng = np.random.default_rng(25)
+    signal = torch.from_numpy((rng.standard_normal((16, 8192 * 512)) * 0.3).astype(np.float32)).to(card)
+    edge, edge_delay = testing.qmf_analysis_edge_inputs(16, 2048, 3)
+    signal[:, :2048] = torch.from_numpy(edge).to(card)
+    delay = torch.from_numpy(edge_delay).to(card)
+    for _ in range(2):
+        low, high = qmf_kernels.qmf_analysis_taps(signal, delay)
+        assert _same_words_as_plain_on_the_cpu(signal, delay, low, high), signal.shape
+        signal, delay = low, signal[:, -46:].contiguous()
+
+
+@pytest.mark.cuda
+def test_qmf_analysis_stream_on_the_card_chunked_equals_whole(card):
+    """gold/transforms.qmf_analysis_stream on K8: the plain route's bands and
+    new delay; a stream cut into chunks of even lengths (one shorter than
+    the delay) and an odd tail equals the whole stream, new delay included."""
+    rng = np.random.default_rng(9)
+    signal = torch.from_numpy((rng.standard_normal((3, 5 * 512 + 41)) * 0.3).astype(np.float32)).to(card)
+    delay = torch.from_numpy((rng.standard_normal((3, 46)) * 0.1).astype(np.float32)).to(card)
+    low, high, last = transforms.qmf_analysis_stream(signal, delay)
+    want = transforms.qmf_analysis_stream(signal, delay, plain=True)
+    assert all(_same_bits(g, w) for g, w in zip((low, high, last), want))
+    parts, d = [], delay
+    for a, b in ((0, 30), (30, 1030), (1030, signal.shape[1])):
+        lo, hi, d = transforms.qmf_analysis_stream(signal[:, a:b].contiguous(), d)
+        parts.append((lo, hi))
+    assert _same_bits(torch.cat([p[0] for p in parts], dim=-1), low)
+    assert _same_bits(torch.cat([p[1] for p in parts], dim=-1), high)
+    assert _same_bits(d, last)
+
+
+@pytest.mark.cuda
+def test_exact_encode_launches_k8_twice_a_step_and_equals_the_cpu(card):
+    """Each exact encode step launches K8 once per tree level; the card's
+    units equal the CPU's (the plain versions) on a short stereo clip."""
+    pcm = testing.synth_audio(300, 2)
+    kernels.reset_launches()
+    got = encode_pcm(pcm, engine="exact", chunk_frames=128, device=card)
+    assert kernels.LAUNCHES["qmf_analysis"] == 2 * 3
+    assert np.array_equal(got, encode_pcm(pcm, engine="exact", chunk_frames=128, device="cpu"))
 
 
 def _pack_call(frames: int = 4, dtype=torch.int32, **change):
